@@ -28,3 +28,8 @@ jax.config.update("jax_platforms", "cpu")
 import matplotlib  # noqa: E402
 
 matplotlib.use("Agg", force=True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
