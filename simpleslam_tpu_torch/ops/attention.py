@@ -14,10 +14,13 @@ denominator at 1e-30; the plain version, like ``xla_masked_attention``,
 REPLACES masked logits by -1e9. The two agree wherever a row has a live
 key; on a fully masked row both are finite averages of v.
 
-Bound on an H100 SXM at the main path's shape (BH = 4, N = 2048, d = 64):
-4 N^2 d BH = 4.3 GFLOP against ~8 MB of I/O, so operations bound it —
-~4.3 us at the bf16 tensor-core peak, ~64 us at the float32 CUDA-core peak
-that this first kernel uses (see the source's header for the design).
+The kernel takes q, k and v as the matcher makes them -- float32 q and k
+with a bf16 v (self-attention), all bf16 (cross-attention), or all float32
+(tests) -- in any row and head strides with a contiguous head dim, and
+takes float32-accurate products on the tensor cores by operand splitting
+(3 TF32 passes for float32 q k^T, 2 bf16 passes for P v; the source's
+header gives the scheme, its emulated error and its bound). A call is one
+device kernel: nothing is upcast or copied first.
 
 :func:`masked_attention` sends CUDA tensors to the kernel and CPU tensors to
 the plain version; there is no fallback from one to the other.
@@ -46,12 +49,49 @@ def plain_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, -1), v.float())
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.masked_attention_f32
+def bind(lib: ctypes.CDLL) -> list:
+    """[launch, max_keys] of a library built from ``SOURCE``, typed."""
+    fn = lib.masked_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_longlong] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float,
+                                                        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    max_keys = lib.masked_attention_max_keys
+    max_keys.argtypes = [ctypes.c_int] * 2
+    max_keys.restype = ctypes.c_int
+    return [fn, max_keys]
+
+
+def _bind():
+    """The kernel's entry points, built and typed at first use."""
+    if not _BOUND:
+        _BOUND.extend(bind(cuda_build.load(SOURCE)))
+    return _BOUND
+
+
+_BOUND: list = []
+
+
+# (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernel's compiled variants
+_VARIANTS = {(torch.float32, torch.bfloat16): (0, 1),
+             (torch.bfloat16, torch.bfloat16): (1, 1),
+             (torch.float32, torch.float32): (0, 0)}
+
+
+def _strides(t: torch.Tensor, name: str):
+    """(head stride, row stride) in elements of a (BH, N, 64) operand; a
+    dim of size 1 has no stride. Raises unless the head dim is contiguous
+    and both strides and the base are 16-byte aligned."""
+    sh, sr, sd = t.stride()
+    sh = sh if t.shape[0] > 1 else 0
+    sr = sr if t.shape[1] > 1 else 0
+    size = t.element_size()
+    if sd != 1 or (sh * size) % 16 or (sr * size) % 16 \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes a contiguous head dim "
+                         f"and 16-byte aligned rows and heads; got strides "
+                         f"{tuple(t.stride())} ({t.dtype})")
+    return sh, sr
 
 
 def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,13 +111,27 @@ def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(mask_k.shape) != (BH, Nk) or mask_k.dtype != torch.bool:
         raise ValueError(f"mask must be bool {(BH, Nk)}, got "
                          f"{mask_k.dtype} {tuple(mask_k.shape)}")
-    fn = _bind(cuda_build.load(SOURCE))
-    qf, kf, vf = (t.float().contiguous() for t in (q, k, v))
-    m = mask_k.contiguous()
+    variant = _VARIANTS.get((q.dtype, v.dtype)) if k.dtype == q.dtype \
+        else None
+    if variant is None:
+        raise ValueError(f"the kernel takes (q, k, v) dtypes (f32, f32, "
+                         f"bf16), (bf16, bf16, bf16) or (f32, f32, f32); got "
+                         f"({q.dtype}, {k.dtype}, {v.dtype})")
+    if Nk > 1 and mask_k.stride(1) != 1:
+        raise ValueError(f"mask: the key dim must be contiguous; got strides "
+                         f"{tuple(mask_k.stride())}")
+    q_s, k_s, v_s = (_strides(t, n) for t, n in ((q, "q"), (k, "k"),
+                                                  (v, "v")))
+    m_sh = mask_k.stride(0) if BH > 1 else 0
+    fn, max_keys = _bind()
+    if Nk > max_keys(*variant):
+        raise ValueError(f"the kernel holds at most {max_keys(*variant)} "
+                         f"keys in this dtype mix; got {Nk}")
     out = torch.empty((BH, Nq, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), m.data_ptr(),
-             out.data_ptr(), BH, Nq, Nk, 1.0 / math.sqrt(d), stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
+             out.data_ptr(), BH, Nq, Nk, *q_s, *k_s, *v_s, m_sh, *variant,
+             1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"masked_attention kernel launch failed: CUDA "
                            f"error {err}")
