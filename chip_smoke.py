@@ -18,9 +18,11 @@ Phases:
               cross: all bf16) and all-float32, as the strided views
               LightGlue hands over and at a ragged (3, 200, 77); at
               trained-scale logits (~800) against float64; device kernels
-              per call (torch.profiler, 1 expected); device times of the
-              kernel, the plain version, SDPA float32 (the yardstick) and
-              SDPA bf16 (a reading) in each main-path mix;
+              per call (torch.profiler, 1 expected); times of the kernel,
+              the plain version, SDPA float32 (the yardstick) and SDPA
+              bf16 (a reading) in each main-path mix: back-to-back calls
+              (``ms``), device time alone (``device_ms``) and the host's
+              time per call (``host_us``);
   4. frontend ALIKED (2048 keypoints) + LightGlue (9 layers) at full width
               with seeded weights on two 376x1232 frames, once through the
               kernel (each call also held to the plain version on its own
@@ -272,22 +274,41 @@ def desc_rel_err(a, b, valid) -> float:
 # timing
 # --------------------------------------------------------------------------- #
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call: CUDA events around ``iters`` calls queued
-    behind a device-side sleep, so the host's launch rate does not enter."""
+def call_times(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Three readings of one call of ``fn``, each over ``iters`` calls:
+      ms         CUDA events around back-to-back calls: where a call's host
+                 cost (Python, checks, launch) exceeds its device time, the
+                 device waits and this shows it;
+      device_ms  the same calls queued behind a device-side sleep, so only
+                 their device time enters;
+      host_us    the host's time per call while it queues them.
+    Raises if the sleep ended before the host had queued every call."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     a.record()
     for _ in range(iters):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    ms = a.elapsed_time(b) / iters
+    s.record()
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    b.record()
+    torch.cuda.synchronize()
+    if host_ms >= s.elapsed_time(a):
+        raise RuntimeError(f"device sleep {s.elapsed_time(a)} ms ended "
+                           f"before the host queued {iters} calls "
+                           f"({host_ms} ms)")
+    return {"ms": ms, "device_ms": a.elapsed_time(b) / iters,
+            "host_us": 1e3 * host_ms / iters}
 
 
 def device_kernels(fn) -> list:
@@ -364,7 +385,7 @@ def reference64(q, k, v, mask):
 
 def run_kernel_phase(dev) -> dict:
     """Phase 3: the kernel against its plain version, at trained scale
-    against float64, kernels per call, and device times. Raises on any
+    against float64, kernels per call, and call times. Raises on any
     failed check."""
     import torch
     from simpleslam_tpu_torch.ops import attention
@@ -423,7 +444,7 @@ def run_kernel_phase(dev) -> dict:
                                f" {err} > {TRAINED_TOL} (plain float32 "
                                f"{err_plain})")
 
-    # one device kernel per call, and device times, in each main-path mix
+    # one device kernel per call, and call times, in each main-path mix
     F = torch.nn.functional
     for mix in ("self", "cross"):
         dts = [getattr(torch, n) for n in MIXES[mix]]
@@ -438,18 +459,18 @@ def run_kernel_phase(dev) -> dict:
         sdpa_mask = m[:, None, None, :]
         ops_ms, bytes_ms = attention_bounds(4, 2048, 2048, mix)
         res["times_ms"][mix] = {
-            "kernel": time_ms(lambda: kernel(q, k, v, m)),
-            "plain": time_ms(lambda: plain(q, k, v, m)),
-            "sdpa_f32": time_ms(lambda: F.scaled_dot_product_attention(
+            "kernel": call_times(lambda: kernel(q, k, v, m)),
+            "plain": call_times(lambda: plain(q, k, v, m)),
+            "sdpa_f32": call_times(lambda: F.scaled_dot_product_attention(
                 q32, k32, v32, attn_mask=sdpa_mask)),
-            "sdpa_bf16": time_ms(lambda: F.scaled_dot_product_attention(
+            "sdpa_bf16": call_times(lambda: F.scaled_dot_product_attention(
                 q16, k16, v16, attn_mask=sdpa_mask)),
             "bound_ops": ops_ms, "bound_bytes": bytes_ms,
             "bound_f32_cuda_cores": 4.0 * 2048 * 2048 * 64 * 4 / 67e12 * 1e3}
         t = res["times_ms"][mix]
-        if t["kernel"] >= t["sdpa_f32"]:
-            raise RuntimeError(f"{mix}: kernel {t['kernel']} ms is not below "
-                               f"SDPA float32 {t['sdpa_f32']} ms")
+        if t["kernel"]["ms"] >= t["sdpa_f32"]["ms"]:
+            raise RuntimeError(f"{mix}: kernel {t['kernel']} is not below "
+                               f"SDPA float32 {t['sdpa_f32']}")
     return res
 
 
@@ -674,12 +695,14 @@ def main() -> None:
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:32",
         "launches": launches,
         "max_abs_err": max(kres["max_abs_err"].values()),
-        "ms": t_self["kernel"],
-        "plain_ms": t_self["plain"],
+        "ms": t_self["kernel"]["ms"],
+        "device_ms": t_self["kernel"]["device_ms"],
+        "host_us": t_self["kernel"]["host_us"],
+        "plain_ms": t_self["plain"]["ms"],
         "bound_ms": max(t_self["bound_ops"], t_self["bound_bytes"]),
         "bound_by": "operations" if t_self["bound_ops"] >=
         t_self["bound_bytes"] else "bytes",
-        "library_ms": t_self["sdpa_f32"],
+        "library_ms": t_self["sdpa_f32"]["ms"],
     }]}), flush=True)
     log("total", t_all)
     print(smi, flush=True)

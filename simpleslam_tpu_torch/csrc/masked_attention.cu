@@ -57,8 +57,9 @@
 //     float32 v (the all-float32 variant only) goes through mma.sync
 //     m16n8k16 with v split into bf16 hi/lo as it is read.
 // The head's mask is staged once per block as bit words (32 keys a word);
-// keys past Nk get -inf in the last tile only. Shared memory bounds Nk at
-// masked_attention_max_keys (over 200k keys in every variant).
+// keys past Nk get -inf in the last tile only. Shared memory bounds Nk
+// (masked_attention_max_keys): 286208 keys in the self-attention variant,
+// 1138048 in the cross-attention variant, 24064 in the all-float32 one.
 //
 // Bound on an H100 SXM at (BH = 4, N = 2048, d = 64): each of q k^T and P v
 // is 2 N^2 d BH = 2.15 GFLOP. Self-attention mix: 3 TF32 passes (6.4 GFLOP
@@ -66,9 +67,9 @@
 // us, against 7 MB of I/O (2 us at 3.35 TB/s). Cross mix: 1 + 2 bf16 passes
 // = 6.5 us against 5 MB (1.5 us). Both are bound by operations. The old
 // float32 CUDA-core bound (4.3 GFLOP at 67 TFLOP/s) was 64 us. Measured on
-// an H100 (PERF.md: chip_smoke.py phase 3, tools/attention_ablation.py):
-// about 50 us self and 25 us cross, 2.9x and 3.9x the bound. The producer
-// alone (loads and split, no math) takes about 30 us and 13 us: every block
+// an H100 (PERF.md: chip_smoke.py phase 3, device time, and an ablation
+// with parts compiled out): about 50 us self and 25 us cross, 2.9x and
+// 3.9x the bound. The producer alone (loads and split, no math) takes about 30 us and 13 us: every block
 // streams its head's whole K/V from L2 (98 MB per self-attention call over
 // 128 blocks), two tiles in flight. The consumers alone take about 35 us
 // and 23 us (the softmax on the CUDA cores, a wait on each MMA). Next

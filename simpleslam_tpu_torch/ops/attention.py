@@ -29,6 +29,7 @@ the plain version; there is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,8 +50,17 @@ def plain_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, -1), v.float())
 
 
-def bind(lib: ctypes.CDLL) -> list:
-    """[launch, max_keys] of a library built from ``SOURCE``, typed."""
+# (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernel's compiled variants
+_VARIANTS = {(torch.float32, torch.bfloat16): (0, 1),
+             (torch.bfloat16, torch.bfloat16): (1, 1),
+             (torch.float32, torch.float32): (0, 0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    """(launch, {variant: the most keys it holds}) of the kernel's library,
+    built, typed and queried once, at first use."""
+    lib = cuda_build.load(SOURCE)
     fn = lib.masked_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float,
@@ -59,23 +69,7 @@ def bind(lib: ctypes.CDLL) -> list:
     max_keys = lib.masked_attention_max_keys
     max_keys.argtypes = [ctypes.c_int] * 2
     max_keys.restype = ctypes.c_int
-    return [fn, max_keys]
-
-
-def _bind():
-    """The kernel's entry points, built and typed at first use."""
-    if not _BOUND:
-        _BOUND.extend(bind(cuda_build.load(SOURCE)))
-    return _BOUND
-
-
-_BOUND: list = []
-
-
-# (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernel's compiled variants
-_VARIANTS = {(torch.float32, torch.bfloat16): (0, 1),
-             (torch.bfloat16, torch.bfloat16): (1, 1),
-             (torch.float32, torch.float32): (0, 0)}
+    return fn, {v: max_keys(*v) for v in _VARIANTS.values()}
 
 
 def _strides(t: torch.Tensor, name: str):
@@ -124,8 +118,8 @@ def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                   (v, "v")))
     m_sh = mask_k.stride(0) if BH > 1 else 0
     fn, max_keys = _bind()
-    if Nk > max_keys(*variant):
-        raise ValueError(f"the kernel holds at most {max_keys(*variant)} "
+    if Nk > max_keys[variant]:
+        raise ValueError(f"the kernel holds at most {max_keys[variant]} "
                          f"keys in this dtype mix; got {Nk}")
     out = torch.empty((BH, Nq, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -161,7 +161,16 @@ def test_masked_attention_kernel_rejects_what_it_cannot_take(cuda):
         misaligned = q.reshape(2, 32, 128)[..., 1:65]
         attention.cuda_masked_attention(misaligned, k[:, :32], v[:, :32],
                                         mask[:, :32])
+    # each variant's key limit: all-float32 holds 24064 keys, the
+    # self-attention mix (bf16 v) 286208
+    k_long = torch.randn(1, 24065, 64, device=cuda)
+    m_long = torch.ones(1, 24065, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="at most 24064 keys"):
+        attention.cuda_masked_attention(q[:1], k_long, k_long, m_long)
     assert attention.cuda_masked_attention.launches == before
+    out = attention.cuda_masked_attention(q[:1], k_long, k_long.bfloat16(),
+                                          m_long)
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
