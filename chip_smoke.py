@@ -24,7 +24,8 @@ Phases:
               (``ms``), device time alone (``device_ms``) and the host's
               time per call (``host_us``);
   4. frontend ALIKED (2048 keypoints) + LightGlue (9 layers) at full width
-              with seeded weights on two 376x1232 frames, once through the
+              with seeded weights (built with ``seeded_init_`` and passed
+              explicitly) on two 376x1232 frames, once through the
               kernel (each call also held to the plain version on its own
               inputs), once through the plain attention and once through a
               deliberately wrong attention (one tile of live keys masked
@@ -32,9 +33,24 @@ Phases:
               the forward's median time over 12 runs (CUDA events) and
               one torch.profiler trace: kernel time by name, the device's
               idle share and the attention kernel's share;
-  5. slam     the main path: ``SLAMSystem.process_frame`` with the learned
-              front-end over 10 frames; the kernel's launch count is read
-              around this phase only;
+  5a. weights the trained tree (``checkpoints/learned_frontend``) read by
+              the port's own OCDBT/zarr reader and zstd decoder (no orbax;
+              a missing or unreadable tree fails the smoke): decode time,
+              leaves, bytes; then one trained LightGlue forward at N = 2048
+              on frames 0 and 4 of phase 5b's corridor, each of its 36
+              attention calls held to a float64 run at TRAINED_TOL;
+  5b. slam    the main path, ``bench.py``'s: its 40-frame corridor at
+              376x1232 rendered on the card by the port's renderer,
+              ``SLAMSystem.process_frame`` with the trained weights until it
+              initialises, then the fused step (``core/fused.py``) built
+              with ``bench.py``'s argv over the remaining frames, once warm
+              and twice timed from a fresh copy of the post-bootstrap
+              state; bootstrap frame, keyframes, lost frames, map points,
+              Sim(3) ATE against the render's ground truth, frames/s, the
+              device's idle share over one round (torch.profiler), host
+              reads and synchronising calls per frame, and the attention
+              kernel's launches in the fused loop. The kernel's launch count
+              is read around the untimed run only;
   6. oracle   the geometric back half over 40 frames, with the front-end
               replaced (here only) by an oracle that projects a seeded
               point cloud: bootstrap, PnP tracking, keyframes,
@@ -98,6 +114,12 @@ DESC_TOL = 5e-2
 # frame and reads 2.4 m, caught by this bound alone; no local BA (0.017 m)
 # and no triangulation (0.10 m) are caught by the count of local BA solves.
 ORACLE_ATE_MAX = 0.1
+# The JAX package's reading of the same main path (the same corridor, argv
+# and frames) on the CPU: ATE 0.009308173324774146 m, 0 lost frames, 8
+# keyframes (``JAX_PLATFORMS=cpu python tests/test_torch_fused.py``). The
+# card is held to twice that, and at least to 5 cm.
+JAX_CPU_ATE = 0.009308173324774146
+MAIN_ATE_MAX = max(2 * JAX_CPU_ATE, 0.05)
 
 
 def log(phase: str, t0: float, **kw) -> None:
@@ -134,20 +156,23 @@ def shifted_frame(tex: np.ndarray, hw, dx: int, dy: int, pad: int = 64):
                                     pad + dx: pad + dx + hw[1]])
 
 
-def umeyama_ate(est_cw: np.ndarray, gt_wc: np.ndarray) -> float:
-    """ATE-RMSE of camera centres after a Sim(3) (Umeyama) alignment."""
-    est = -np.einsum("nji,nj->ni", est_cw[:, :3, :3], est_cw[:, :3, 3])
-    gt = gt_wc[:, :3, 3]
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    e, g = est - mu_e, gt - mu_g
-    U, S, Vt = np.linalg.svd(g.T @ e / len(est))
-    D = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        D[2, 2] = -1
-    R = U @ D @ Vt
-    s = np.trace(np.diag(S) @ D) / max((e ** 2).sum() / len(est), 1e-12)
-    aligned = s * est @ R.T + (mu_g - s * R @ mu_e)
-    return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
+def bench_setup(small: bool = False):
+    """``bench.py``'s corridor main path (``bench_e2e_fused``): image size,
+    intrinsics and argv; ``small`` is its CPU-sized variant."""
+    if small:
+        H, W, n_kp, cap = 180, 410, 512, 2048
+    else:
+        H, W, n_kp, cap = 376, 1232, 2048, 8192
+    K = KITTI_K.copy()
+    K[0] *= W / 1232.0
+    K[1] *= W / 1232.0
+    K[1, 2] = 0.487 * H
+    argv = ["--dataset", "kitti", "--headless", "--no_viz3d",
+            "--max_features", str(n_kp), "--map_capacity", str(cap),
+            "--use_lightglue", "--tri_kf2"]
+    if not small:
+        argv += ["--fused_ba_points", "2048", "--local_ba_max_iters", "8"]
+    return (H, W), K, argv
 
 
 # --------------------------------------------------------------------------- #
@@ -239,6 +264,7 @@ def run_oracle_phase(device, n_frames: int = 40, n_kp: int = N_KP,
     for i in range(n_frames):
         oracle.frame = i
         prev = system.process_frame(i, img, prev)
+    from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
     poses = np.stack(system.world_map.poses) if system.world_map.poses \
         else np.zeros((0, 4, 4))
     ids = system.frame_ids
@@ -249,7 +275,7 @@ def run_oracle_phase(device, n_frames: int = 40, n_kp: int = N_KP,
         "map_points": len(system.world_map),
         "lost": system.tracking_lost_count,
         "local_ba_solves": system.local_ba_solves,
-        "ate_m": umeyama_ate(poses, oracle.T_wc[ids]) if len(ids) > 2
+        "ate_m": ate_rmse(poses, oracle.T_wc[ids])[0] if len(ids) > 2
         else float("nan"),
         "finite": bool(np.isfinite(poses).all()),
         "consistent": len(poses) == len(ids) and ids == sorted(set(ids)),
@@ -261,6 +287,240 @@ def oracle_ok(res: dict) -> bool:
     return bool(res["finite"] and res["consistent"] and res["lost"] == 0
                 and res["keyframes"] >= 3 and res["local_ba_solves"] >= 1
                 and res["ate_m"] <= ORACLE_ATE_MAX)
+
+
+# --------------------------------------------------------------------------- #
+# the main path: bench.py's corridor, host bootstrap, then the fused step
+# --------------------------------------------------------------------------- #
+
+def run_main_path(device, small: bool = False, n_frames: int = 40,
+                  weights=None, timed_rounds: int = 0, seed: int = 0) -> dict:
+    """Phase 5b: ``bench.py``'s fused main path on ``device``. ``weights``:
+    (aliked, lightglue) state_dicts for ``SLAMSystem``; ``seed``: the RANSAC
+    seed (``--seed``). With
+    ``timed_rounds`` (CUDA only) the fused loop is also timed that many
+    times from a fresh copy of the post-bootstrap state, profiled once for
+    the device's idle share and run once counting synchronising calls."""
+    import torch
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.run_slam import (SLAMSystem, build_fused_loop,
+                                               run_fused_loop)
+    from simpleslam_tpu_torch.tools.synth import render_sequence
+    from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
+
+    hw, K, argv = bench_setup(small)
+    argv = argv + ["--seed", str(seed)]
+    t0 = time.time()
+    frames, T_wc = render_sequence("corridor", 0, hw, K, n_frames, speed=0.5,
+                                   yaw_rate_deg=0.3, device=device)
+    res = {"frames": n_frames, "hw": list(hw), "argv": argv,
+           "render_s": time.time() - t0}
+    cfg = parse_config(argv)
+    system = SLAMSystem(cfg, K, None, img_hw=hw, device=device,
+                        weights=weights)
+    kernel = attention.cuda_masked_attention
+    kernel.launches = 0                     # the main path's run starts here
+    t0 = time.time()
+    prev = system.process_frame(0, frames[0], None)
+    start = 1
+    while start < n_frames and not system.initialised:
+        prev = system.process_frame(start, frames[start], prev)
+        start += 1
+    res.update(initialised=system.initialised, bootstrap_s=time.time() - t0,
+               bootstrap_frame=start - 1 if system.initialised else None)
+    if not system.initialised:
+        res.update(launches=kernel.launches, lost=None, finite=False)
+        return res
+    launches_boot, calls_boot = kernel.launches, system.matcher.calls
+    fc, step, state0 = build_fused_loop(cfg, system, prev, n_frames)
+    boot_poses = np.stack(system.world_map.poses)
+    boot_ids = list(system.frame_ids)
+    rest = frames[start:]
+    n = len(rest)
+
+    def fused_round():
+        state = state0.clone()
+        for img in rest:
+            state = step(state, img)
+        return state
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.time()                        # warm round: run_fused_loop
+    state, _ = run_fused_loop(cfg, system, rest, prev, start,
+                              built=(fc, step, state0.clone()))
+    sync()
+    res["warm_round_s"] = time.time() - t0
+    launches = kernel.launches              # ... and ends here
+    flags = state.log_flags[:n].cpu().numpy()
+    est = np.concatenate([boot_poses, state.log_pose[:n].cpu().numpy()])
+    ids = boot_ids + list(range(start, n_frames))
+    kf_rows = np.flatnonzero(flags[:, 1] > 0.5)
+    n_pre = len(boot_ids) + (int(kf_rows[0]) + 1 if len(kf_rows) else n)
+    res.update(
+        frames_fused=n, keyframes=int(state.kf_count),
+        keyframe_frames=[int(f) for f, fl in zip(range(start, n_frames),
+                                                 flags) if fl[1] > 0.5],
+        lost=int(n - flags[:, 0].sum()), map_points=int(state.n_points),
+        ate_m=float(ate_rmse(est, T_wc[ids])[0]),
+        ate_first_kf_m=float(ate_rmse(est[:n_pre], T_wc[ids[:n_pre]])[0]),
+        finite=bool(np.isfinite(est).all()),
+        host_reads_per_frame=step.host_reads / n,
+        ba_solves=step.ba_solves, ba_ran_flags=int(flags[:, 5].sum()),
+        ba_shift=float(step.ba_shift), launches=launches,
+        launches_bootstrap=launches_boot,
+        launches_fused_loop=launches - launches_boot,
+        match_calls_fused_loop=system.matcher.calls - calls_boot)
+    if timed_rounds:
+        secs = []
+        for _ in range(timed_rounds):
+            sync()
+            t0 = time.perf_counter()
+            fused_round()
+            sync()
+            secs.append(time.perf_counter() - t0)
+        res["round_s"] = secs
+        res["frames_per_s"] = n / min(secs)
+        res["trace"] = device_idle_share(fused_round)
+        n_syncs, sites = count_syncs(fused_round)
+        res["syncs_per_frame"] = n_syncs / n
+        res["sync_sites"] = sites
+    res["consistent"] = bool(
+        system.frame_ids == list(range(n_frames))
+        and len(system.world_map.poses) == n_frames
+        and len(system.kfs) == system.kf_count_override
+        == int(state.kf_count))
+    return res
+
+
+def main_path_ok(res: dict, ate_max: float = MAIN_ATE_MAX,
+                 kernel: bool = True) -> bool:
+    """Phase 5b's verdict on :func:`run_main_path`'s result: initialised,
+    no frame lost, finite poses, the host sync consistent, local BA ran on
+    every keyframe that asked for it and moved a keyframe pose, the matcher
+    ran in the fused loop, ATE within ``ate_max``; with ``kernel`` (on the
+    card)
+    the masked-attention kernel launched 36 times for each LightGlue
+    forward of the fused loop."""
+    if not res["initialised"]:
+        return False
+    kernel_ok = (res["match_calls_fused_loop"] > 0
+                 and res["launches_fused_loop"]
+                 == 36 * res["match_calls_fused_loop"]) if kernel else True
+    return bool(res["lost"] == 0 and res["finite"] and res["consistent"]
+                and res["ba_solves"] >= 1
+                and res["ba_solves"] == res["ba_ran_flags"]
+                and res["ba_shift"] > 0 and res["ate_m"] <= ate_max
+                and res["match_calls_fused_loop"] > 0 and kernel_ok)
+
+
+def device_idle_share(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (device activity only): the
+    span from the first kernel's start to the last one's end, the time
+    with a kernel running, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy, window = busy_and_window(spans)
+    return {"device_kernels": len(spans), "window_ms": window / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / window}
+
+
+def count_syncs(fn) -> tuple:
+    """Synchronising CUDA calls (device-to-host reads, status checks,
+    copies from the host) made by one call of ``fn``, as
+    ``torch.cuda.set_sync_debug_mode`` reports them: (count, the twelve
+    most frequent calling lines as {"file:line": count})."""
+    import collections
+    import os
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchronizing" in str(w.message)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in syncs)
+    return len(syncs), dict(sites.most_common(12))
+
+
+def run_weights_phase(dev) -> tuple:
+    """Phase 5a: restore the trained tree with the port's reader (raising
+    if it is missing or unreadable) and check a trained LightGlue forward's
+    36 attention calls against float64. Returns (result, state_dicts)."""
+    import torch
+    from simpleslam_tpu_torch.models import checkpoint
+    from simpleslam_tpu_torch.models import lightglue as lg_mod
+    from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
+                                                      LearnedMatcher,
+                                                      from_jax_params)
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.tools.synth import CorridorScene, make_trajectory
+
+    t0 = time.time()
+    tree = checkpoint.load_frontend_tree(on_error="raise")
+    decode_s = time.time() - t0
+    leaves, nbytes = checkpoint.tree_stats(tree)
+    weights = from_jax_params(tree["aliked"], tree["lightglue"])
+    hw, K, _argv = bench_setup()
+    T_wc = make_trajectory(5, speed=0.5, yaw_rate_deg=0.3)
+    scene = CorridorScene(seed=0, hw=hw, K=K, device=dev)
+    ext = LearnedExtractor(N_KP, device=dev, state_dict=weights[0])
+    mat = LearnedMatcher(ext, state_dict=weights[1])
+    feats = [ext.fn(scene.render(T_wc[i]).float()) for i in (0, 4)]
+    calls = []
+
+    def checked64(q, k, v, m):
+        out = attention.masked_attention(q, k, v, m)
+        ref = reference64(q, k, v, m)
+        live = m.any(1)
+        scale = max(1.0, v.float().abs().max().item())
+        plain = attention.plain_masked_attention(q, k, v, m)
+        calls.append({
+            "err": (out.double() - ref).abs()[live].max().item() / scale,
+            "plain_f32_err": (plain.double() - ref).abs()[live].max()
+            .item() / scale,
+            "max_abs_logit": (q.double() @ k.double().transpose(1, 2))
+            .abs().max().item() / 8, "max_abs_v": scale,
+            "q_dtype": str(q.dtype)})
+        return out
+
+    args = (feats[0].kpts[None], feats[0].desc[None], feats[0].valid[None],
+            feats[1].kpts[None], feats[1].desc[None], feats[1].valid[None],
+            hw)
+    lg_mod.masked_attention = checked64
+    try:
+        with torch.no_grad():
+            P = mat.model(*args)[0][0]
+    finally:
+        lg_mod.masked_attention = attention.masked_attention
+    worst = max(calls, key=lambda c: c["err"])
+    res = {"decode_s": decode_s, "leaves": leaves, "bytes": nbytes,
+           "path": checkpoint.checkpoint_dir(),
+           "keypoints": [int(f.valid.sum()) for f in feats],
+           "attention_calls": len(calls), "worst_call": worst,
+           "tolerance": TRAINED_TOL, "P_finite": bool(torch.isfinite(P)
+                                                      .all())}
+    if not (len(calls) == 36 and worst["err"] <= TRAINED_TOL
+            and res["P_finite"] and leaves == 289):
+        raise RuntimeError(f"trained forward failed its checks: {res}")
+    return res, weights
 
 
 def desc_rel_err(a, b, valid) -> float:
@@ -313,16 +573,24 @@ def call_times(fn, iters: int = 20, warmup: int = 3) -> dict:
 
 def device_kernels(fn) -> list:
     """Names of the device kernels that one call of ``fn`` runs
-    (torch.profiler)."""
+    (torch.profiler). Now and then the profiler returns no device record
+    at all for a session (seen once on an H100, for a call whose output
+    was right); such a session is taken again, up to three times. A
+    session with any record is final."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    names = []
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def attention_inputs(seed, BH, N, device, dtype, dead_head=None):
@@ -493,6 +761,21 @@ def forward_times_ms(fn, runs: int = 12, warmup: int = 2) -> list:
     return out
 
 
+def busy_and_window(spans) -> tuple:
+    """(time with a kernel running, span from the first kernel's start to
+    the last one's end) of (start, end) kernel intervals, in their unit."""
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    return busy, spans[-1][1] - spans[0][0]
+
+
 def profile_forward(fn) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel name
     (the eight largest), the span from the first kernel's start to the last
@@ -510,20 +793,12 @@ def profile_forward(fn) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not evs:
         raise RuntimeError("torch.profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    spans = [(e.time_range.start, e.time_range.end) for e in evs]
     by_name = {}
     for e in evs:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             (e.time_range.end - e.time_range.start) / 1e3
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = busy_and_window(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"device_kernels": len(evs), "window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / window,
@@ -542,9 +817,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
+    from simpleslam_tpu_torch.models import aliked as aliked_mod
     from simpleslam_tpu_torch.models import lightglue as lg_mod
     from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
-                                                      LearnedMatcher)
+                                                      LearnedMatcher,
+                                                      seeded_init_)
     from simpleslam_tpu_torch.ops import attention
     from simpleslam_tpu_torch.utils import cuda_build
     dev = torch.device("cuda")
@@ -574,8 +851,10 @@ def main() -> None:
     tex = texture(1, HW)
     f0_img = shifted_frame(tex, HW, 0, 0)
     f1_img = shifted_frame(tex, HW, 6, 2)
-    ext = LearnedExtractor(N_KP, seed=0, device=dev)
-    mat = LearnedMatcher(ext, seed=1, n_layers=9)
+    ext = LearnedExtractor(N_KP, device=dev, state_dict=seeded_init_(
+        aliked_mod.ALIKED(), 0).state_dict())
+    mat = LearnedMatcher(ext, n_layers=9, state_dict=seeded_init_(
+        lg_mod.LightGlue(n_layers=9), 1).state_dict())
     feats = [ext.fn(torch.as_tensor(im, device=dev).float())
              for im in (f0_img, f1_img)]
     for f in feats:
@@ -647,35 +926,18 @@ def main() -> None:
         device_idle_share_of_median_forward=1 - trace["device_busy_ms"]
         / fwd_median, trace=trace)
 
-    # 5. slam, learned (the main path) -------------------------------------------
+    # 5a. trained weights ----------------------------------------------------
     t0 = time.time()
-    from simpleslam_tpu_torch.config import SLAMConfig
-    from simpleslam_tpu_torch.run_slam import SLAMSystem
-    cfg = SLAMConfig(use_lightglue=True, max_features=N_KP)
-    system = SLAMSystem(cfg, KITTI_K, None, img_hw=HW)
-    attention.cuda_masked_attention.launches = 0
-    prev = None
-    frame_s = []
-    for i in range(10):
-        tf = time.time()
-        prev = system.process_frame(i, shifted_frame(tex, HW, 3 * i, i), prev)
-        torch.cuda.synchronize()
-        frame_s.append(time.time() - tf)
-    launches = attention.cuda_masked_attention.launches
-    poses = np.stack(system.world_map.poses) if system.world_map.poses \
-        else np.zeros((0, 4, 4))
-    calls = system.matcher.calls
-    ok = (np.isfinite(poses).all()
-          and len(system.world_map.poses) == len(system.frame_ids)
-          and system.frame_ids == sorted(set(system.frame_ids))
-          and torch.isfinite(prev.kpts).all().item()
-          and calls > 0 and launches >= 36 * calls)
-    log("slam", t0, frames=10, match_calls=calls, kernel_launches=launches,
-        initialised=system.initialised, frames_posed=len(system.frame_ids),
-        frame_ms=[round(1e3 * s, 1) for s in frame_s],
-        stages={k: round(v, 3) for k, v in system.timer.totals.items()})
-    if not ok:
-        raise RuntimeError("learned SLAM phase produced inconsistent output")
+    wres, weights = run_weights_phase(dev)
+    log("weights", t0, **wres)
+
+    # 5b. slam: bench.py's main path (bootstrap, then the fused step) -------
+    t0 = time.time()
+    res = run_main_path(dev, weights=weights, timed_rounds=2)
+    launches, launches_fused = res["launches"], res["launches_fused_loop"]
+    log("slam", t0, nvidia_smi=smi, ate_max=MAIN_ATE_MAX, **res)
+    if not main_path_ok(res):
+        raise RuntimeError(f"main path failed its checks: {res}")
 
     # 6. slam, geometric back half (oracle front-end) -----------------------------
     t0 = time.time()
@@ -694,6 +956,7 @@ def main() -> None:
         "source": "simpleslam_tpu_torch/csrc/masked_attention.cu",
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:32",
         "launches": launches,
+        "launches_fused_loop": launches_fused,
         "max_abs_err": max(kres["max_abs_err"].values()),
         "ms": t_self["kernel"]["ms"],
         "device_ms": t_self["kernel"]["device_ms"],

@@ -2,10 +2,14 @@
 ``simpleslam_tpu/config.py`` that the ported slice reads.
 
 Each field and flag keeps the reference's name and default, so a launch
-command that sets only these flags configures either package. Flags of
-paths not yet ported (dataset IO, viz, loop closure, global BA, the fused
-loop, classical matchers) are absent: the parser rejects them. ``yaml`` is
-imported only when a YAML file is read.
+command that sets only these flags configures either package (``bench.py``'s
+argv included). ``dataset``, ``headless``, ``no_viz3d`` and
+``loop_closure`` are parsed for that reason; the dataloader, viz and loop
+closure wait in the roadmap (the fused loop raises when ``loop_closure`` is
+set). Flags of the other paths not yet ported (dataset paths, global BA,
+classical matchers, the CLI's ``--fused`` switch and the fused loop-closure
+rescue ``--fused_rescue_after``) are absent: the parser rejects them rather
+than ignore them. ``yaml`` is imported only when a YAML file is read.
 """
 from __future__ import annotations
 
@@ -18,6 +22,9 @@ from typing import List, Optional
 
 @dataclass
 class SLAMConfig:
+    # dataset
+    dataset: str = "kitti"                 # kitti | malaga | tum-rgbd | custom
+
     # front-end (reference defaults: main_revamped.py:200-208)
     detector: str = "orb"                  # only "aliked" is ported
     use_lightglue: bool = False
@@ -33,6 +40,10 @@ class SLAMConfig:
     kf_min_ratio: float = 0.35
     kf_min_rot_deg: float = 8.0
     kf_cooldown: int = 5
+
+    # visualization
+    no_viz3d: bool = False
+    headless: bool = False
 
     # triangulation depth gates
     min_depth: float = 0.40
@@ -51,6 +62,7 @@ class SLAMConfig:
     local_ba_min_new_points: int = 60
     local_ba_max_points: int = 5000
     local_ba_max_iters: int = 12
+    ba_huber: float = 2.0                  # ba_utils.py:236
 
     # hard-coded reference constants surfaced as config
     bootstrap_min_posdepth: float = 0.90   # main_revamped.py:358-362
@@ -78,6 +90,14 @@ class SLAMConfig:
     global_reloc_topk: int = 3             # place candidates to PnP-verify
     global_reloc_min_sim: float = 0.30     # place-vector cosine gate
 
+    # the fused device loop (core/fused.py, run_slam.run_fused_loop)
+    fused_sync_every: int = 0              # 0 => sync the host map at the end
+    fused_ba_points: int = 0               # fused-loop BA window point slice
+                                           # (0 => 4096)
+    map_evict_age: int = 50                # fused map: evict landmarks unseen
+                                           # this many frames near capacity
+    loop_closure: bool = False             # loop closure (not ported yet)
+
     @classmethod
     def from_yaml(cls, path: str) -> "SLAMConfig":
         yaml = importlib.import_module("yaml")
@@ -96,6 +116,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("simpleslam_tpu_torch")
     d = SLAMConfig()
     p.add_argument("--config", default=None, help="YAML config file")
+    p.add_argument("--dataset", choices=["kitti", "malaga", "tum-rgbd",
+                                         "custom"], default=d.dataset)
+    for flag in ("no_viz3d", "headless", "loop_closure"):
+        p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--detector", choices=["orb", "sift", "akaze", "aliked"],
                    default=d.detector)
     p.add_argument("--use_lightglue", action="store_true")

@@ -19,8 +19,8 @@ def init_feature_pipeline(args, device=None,
                           weights: Optional[Tuple[Mapping, Mapping]] = None):
     """Build (detector, matcher) from the config. ``--use_lightglue`` (or
     ``detector='aliked'``) selects ALIKED + LightGlue; ``weights`` is an
-    optional (aliked_state_dict, lightglue_state_dict) pair, seeded
-    weights otherwise."""
+    optional (aliked_state_dict, lightglue_state_dict) pair; otherwise the
+    models restore the trained tree (``models/pipeline.py``)."""
     use_lg = bool(getattr(args, "use_lightglue", False)) or \
         getattr(args, "detector", "orb") == "aliked"
     if not use_lg:

@@ -6,9 +6,9 @@ The single source of truth is a set of growable flat numpy arrays
 tracking step can snapshot the map as padded tensors in O(1) copies; the
 dict-of-``MapPoint`` API is a view on top (``Map.points[pid].position``).
 See the reference module for the behavioural contracts kept. The archive
-of evicted landmarks, ``upsert_point`` (both for the fused loop and loop
-closure) and ``fuse_closeby_duplicate_landmarks`` (multi-view
-triangulation) wait for the slices that use them."""
+of evicted landmarks (loop closure's) and
+``fuse_closeby_duplicate_landmarks`` (multi-view triangulation) wait for
+the slices that read them; ``upsert_point`` serves the fused loop's sync."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -200,6 +200,28 @@ class Map:
         self.version += 1
         del self._row[pid]
         self._obs.pop(pid, None)
+
+    def upsert_point(self, pid: int, position, colour=None,
+                     keyframe_idx: int = -1) -> bool:
+        """Insert-or-update a landmark under an externally assigned id (the
+        fused loop assigns ids; its sync reconciles by id). An existing
+        point gets its position; a new one is appended. Returns True when
+        the point was inserted."""
+        self.version += 1
+        if pid in self._row:
+            self._positions[self._row[pid]] = np.asarray(position, np.float64)
+            return False
+        self._grow(1)
+        row = self._n_rows
+        self._positions[row] = np.asarray(position, np.float64)
+        if colour is not None:
+            self._colours[row] = np.asarray(colour, np.float32)
+        self._created_kf[row] = keyframe_idx
+        self._row[pid] = row
+        self._obs[pid] = []
+        self._n_rows += 1
+        self._next_pid = max(self._next_pid, pid + 1)
+        return True
 
     # ---------------- Camera trajectory (parity) ---------------------------
     def add_pose(self, pose_c_w: np.ndarray, is_keyframe: bool) -> None:

@@ -87,6 +87,8 @@ def triangulate_between_kfs_2view(args, K: np.ndarray, prev_kf: Keyframe,
             world_map.points[pid].add_observation(cur_kf.idx, int(b),
                                                   desc1[b])
             done.append(pid)
-        except (KeyError, ValueError, IndexError):
+        except Exception:
+            # roll back a half-registered landmark, whatever failed (the
+            # reference's rule)
             world_map.points.pop(pid, None)
     return done

@@ -132,9 +132,12 @@ class LightGlue(nn.Module):
         (P (B, N, M) assignment probabilities, sig0, sig1)."""
         H, W = image_hw
         scale = float(max(H, W))
-        center = kpts0.new_tensor([W / 2.0, H / 2.0])
-        th0 = self.rotary_freq((kpts0 - center) / scale) * 10.0
-        th1 = self.rotary_freq((kpts1 - center) / scale) * 10.0
+
+        def centred(k):           # Python numbers: no copy to the device
+            return torch.stack([k[..., 0] - W / 2.0, k[..., 1] - H / 2.0], -1)
+
+        th0 = self.rotary_freq(centred(kpts0) / scale) * 10.0
+        th1 = self.rotary_freq(centred(kpts1) / scale) * 10.0
         x0 = self.input_proj(desc0.float())
         x1 = self.input_proj(desc1.float())
         for i in range(self.n_layers):

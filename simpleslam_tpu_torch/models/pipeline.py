@@ -3,11 +3,13 @@ the frontend facade (the counterpart of ``simpleslam_tpu/models/pipeline.py``).
 
 The topology is pinned to the reference's trained checkpoints: descriptor
 dim 128, ALIKED channels 32/64/128/128, LightGlue dim 256, 4 heads, 9 layers.
-Weights are seeded (``torch.Generator``) unless a state_dict is given. The
-trained weights exist only as orbax trees, which the port does not read:
-:func:`from_jax_params` converts the JAX parameter trees (as numpy arrays)
-into the port's state_dicts name for name, and the tests convert them in
-memory.
+Weights, as in the reference: an explicit state_dict wins; otherwise the
+models are seeded (``torch.Generator``) and then grafted with every leaf of
+the trained tree (``SLAM_FRONTEND_CKPT``, else
+``checkpoints/learned_frontend``) whose name and shape match. The tree is
+read by ``models/checkpoint.py`` and converted by :func:`from_jax_params`;
+with no tree, or one that fails to read, a warning names the path and the
+seeded weights stay.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from simpleslam_tpu_torch.core.types import Features, Matches
+from simpleslam_tpu_torch.models import checkpoint
 from simpleslam_tpu_torch.models import aliked as aliked_mod
 from simpleslam_tpu_torch.models import lightglue as lg_mod
 from simpleslam_tpu_torch.utils.device import resolve_device
@@ -64,6 +67,29 @@ def from_jax_params(aliked_np: Mapping, lightglue_np: Mapping
         jax_tree_to_state_dict(lightglue_np)
 
 
+def trained_state_dicts(path: Optional[str] = None, on_error: str = "warn"
+                        ) -> Optional[Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]]:
+    """(aliked_state_dict, lightglue_state_dict) of the trained tree, or
+    None (see ``checkpoint.load_frontend_tree``)."""
+    tree = checkpoint.load_frontend_tree(path, on_error=on_error)
+    return None if tree is None else from_jax_params(tree["aliked"],
+                                                     tree["lightglue"])
+
+
+def _init_weights(module: nn.Module, seed: int,
+                  state_dict: Optional[Mapping], part: int) -> None:
+    """An explicit state_dict, else seeded and grafted with the trained
+    tree's matching leaves (part 0: ALIKED, 1: LightGlue)."""
+    if state_dict is not None:
+        module.load_state_dict(state_dict, strict=True)
+        return
+    seeded_init_(module, seed)
+    trained = trained_state_dicts()
+    if trained is not None:
+        checkpoint.graft_matching(module, trained[part])
+
+
 @torch.no_grad()
 def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     """Deterministic init from a ``torch.Generator``, flax's defaults:
@@ -93,10 +119,7 @@ class LearnedExtractor:
         self.desc_dim = desc_dim
         self.device = resolve_device(device)
         self.model = aliked_mod.ALIKED(desc_dim=desc_dim)
-        if state_dict is None:
-            seeded_init_(self.model, seed)
-        else:
-            self.model.load_state_dict(state_dict, strict=True)
+        _init_weights(self.model, seed, state_dict, 0)
         self.model.to(self.device).eval()
         self.image_hw: Optional[Tuple[int, int]] = None
 
@@ -122,10 +145,7 @@ class LearnedMatcher:
         self.device = extractor.device
         self.model = lg_mod.LightGlue(desc_dim=extractor.desc_dim,
                                       n_layers=n_layers)
-        if state_dict is None:
-            seeded_init_(self.model, seed)
-        else:
-            self.model.load_state_dict(state_dict, strict=True)
+        _init_weights(self.model, seed, state_dict, 1)
         self.model.to(self.device).eval()
         self.calls = 0
 

@@ -1,6 +1,6 @@
 """Schur-complement Levenberg-Marquardt bundle adjustment (the counterpart
-of ``simpleslam_tpu/ops/ba.py``; ``ba_solve_batch``, ``ba_solve_sharded``
-and the point-major edge layout wait for the fused step).
+of ``simpleslam_tpu/ops/ba.py``; ``ba_solve_batch`` and ``ba_solve_sharded``
+wait for the batch / multi-device slice).
 
 * residuals: pinhole reprojection ``pi(K, T_cw_j, X_i) - uv_e`` over a
   padded edge list (cam_idx, pt_idx, uv, e_valid);
@@ -16,7 +16,11 @@ and the point-major edge layout wait for the fused step).
   of MB). ``index_add_`` would do the same sums, but on CUDA its atomic
   adds land in a varying order, and a monocular run amplifies that
   rounding from run to run; ``segment_reduce`` sums each segment in edge
-  order, the same order as on the CPU.
+  order, the same order as on the CPU;
+* point-major edges (``point_major_obs=O``, the layout the fused step's
+  local BA emits: ``E == L*O``, ``pt_idx == repeat(arange(L), O)``): the
+  per-point sums are reshape-sums over the O slots and the camera-point
+  coupling is O index writes, one edge per point each, in slot order.
 """
 from __future__ import annotations
 
@@ -92,20 +96,29 @@ def _inv3x3(M: torch.Tensor) -> torch.Tensor:
 def _segment_sum(values: torch.Tensor, index: torch.Tensor, n: int
                  ) -> torch.Tensor:
     order = torch.argsort(index, stable=True)
-    counts = torch.bincount(index, minlength=n)
+    counts = torch.zeros(n, dtype=torch.int64, device=index.device) \
+        .scatter_add_(0, index, torch.ones_like(index))
+    # unsafe: the counts are right by construction; the checks would read
+    # them on the host
     return torch.segment_reduce(values[order], "sum", lengths=counts,
-                                axis=0)
+                                axis=0, unsafe=True)
 
 
 def _ba_solve_impl(problem: BAProblem, K: torch.Tensor, *,
                    huber: float = 2.0, max_iters: int = 12,
-                   init_lambda: float = 1e-3):
+                   init_lambda: float = 1e-3, point_major_obs: int = 0):
     """LM with Schur-complement steps. Stops at ``max_iters``, after 3
     consecutive rejected steps, or when an accepted step improves the cost
-    by < 1e-5 relative (one host read of two scalars per iteration)."""
+    by < 1e-5 relative. The reference's ``while_loop`` tests that on the
+    device; here all ``max_iters`` iterations run and the test freezes the
+    iterate once it holds, so nothing is read back to the host."""
     P = problem.poses.shape[0]
     L = problem.points.shape[0]
     dev = problem.points.device
+    O = int(point_major_obs)
+    if O and problem.cam_idx.shape[0] != L * O:
+        raise ValueError(f"point_major_obs={O} needs E == L*O "
+                         f"({problem.cam_idx.shape[0]} != {L}*{O})")
     K = K.float()
     cam_idx, pt_idx = problem.cam_idx, problem.pt_idx
     uv, e_valid = problem.uv, problem.e_valid
@@ -143,13 +156,24 @@ def _ba_solve_impl(problem: BAProblem, K: torch.Tensor, *,
 
         U = _segment_sum(torch.einsum("eri,erj->eij", wJcam, Jcam),
                          cam_idx, P)                               # (P,6,6)
-        V = _segment_sum(torch.einsum("eri,erj->eij", wJpt, Jpt),
-                         pt_idx, L)                                # (L,3,3)
         gc = _segment_sum(-torch.einsum("eri,er->ei", wJcam, r), cam_idx, P)
-        gp = _segment_sum(-torch.einsum("eri,er->ei", wJpt, r), pt_idx, L)
+        JJp = torch.einsum("eri,erj->eij", wJpt, Jpt)              # (E,3,3)
+        gpe = -torch.einsum("eri,er->ei", wJpt, r)                 # (E,3)
         cross = torch.einsum("eri,erj->eij", wJcam, Jpt)           # (E,6,3)
-        A = _segment_sum(cross, pt_idx * P + cam_idx, L * P
-                         ).reshape(L, P, 6, 3)
+        if O:
+            V = JJp.reshape(L, O, 3, 3).sum(1)
+            gp = gpe.reshape(L, O, 3).sum(1)
+            A = torch.zeros((L, P, 6, 3), dtype=cross.dtype, device=dev)
+            rows = torch.arange(L, device=dev)
+            cam_lo = cam_idx.reshape(L, O)
+            cross_lo = cross.reshape(L, O, 6, 3)
+            for o in range(O):
+                A[rows, cam_lo[:, o]] += cross_lo[:, o]
+        else:
+            V = _segment_sum(JJp, pt_idx, L)                       # (L,3,3)
+            gp = _segment_sum(gpe, pt_idx, L)
+            A = _segment_sum(cross, pt_idx * P + cam_idx, L * P
+                             ).reshape(L, P, 6, 3)
 
         Ud = U + lam * (U * eye6) + 1e-8 * eye6
         Vd = V + lam * (V * eye3) + 1e-8 * eye3
@@ -187,28 +211,33 @@ def _ba_solve_impl(problem: BAProblem, K: torch.Tensor, *,
     poses = problem.poses.float()
     points = problem.points.float()
     c0 = cost_of(poses, points)
-    lam = torch.tensor(init_lambda, device=dev)
-    n_good, n_rej = 0, 0
+    lam = torch.full((), init_lambda, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    n_good = torch.zeros((), dtype=torch.int64, device=dev)
+    n_rej = torch.zeros((), dtype=torch.int64, device=dev)
     for _ in range(max_iters):
-        poses, points, lam, accept, c_before, c_after = lm_step(poses, points,
-                                                                lam)
-        acc, cb, ca = (v.item() for v in torch.stack(
-            [accept.float(), c_before, c_after]).cpu())
-        rel = (cb - ca) / max(cb, 1e-12)
-        n_good += int(acc)
-        n_rej = 0 if acc else n_rej + 1
-        if n_rej >= 3 or (acc and rel < 1e-5):
-            break
+        p1, x1, lam1, accept, c_before, c_after = lm_step(poses, points, lam)
+        poses = torch.where(done, poses, p1)
+        points = torch.where(done, points, x1)
+        lam = torch.where(done, lam, lam1)
+        rel = (c_before - c_after) / torch.clamp(c_before, min=1e-12)
+        n_good = n_good + (accept & ~done).long()
+        n_rej = torch.where(accept, torch.zeros_like(n_rej), n_rej + 1)
+        done = done | (n_rej >= 3) | (accept & (rel < 1e-5))
     return poses, points, c0, cost_of(poses, points), n_good
 
 
 @highest_precision()
 def ba_solve(problem: BAProblem, K: torch.Tensor, *, huber: float = 2.0,
-             max_iters: int = 12, init_lambda: float = 1e-3):
+             max_iters: int = 12, init_lambda: float = 1e-3,
+             point_major_obs: int = 0):
     """LM with Schur-complement steps -> (poses, points, cost_initial,
-    cost_final, n_good_iters)."""
+    cost_final, n_good_iters), ``n_good_iters`` a device scalar.
+    ``point_major_obs``: the obs-slot count O when the edges are the
+    (L, O) point-major layout (module docstring)."""
     return _ba_solve_impl(problem, K, huber=huber, max_iters=max_iters,
-                          init_lambda=init_lambda)
+                          init_lambda=init_lambda,
+                          point_major_obs=point_major_obs)
 
 
 @highest_precision()
@@ -234,7 +263,7 @@ def pose_only_refine(Tcw: torch.Tensor, points: torch.Tensor,
         return _robust_cost(r, ok, huber)
 
     T = Tcw.float()
-    lam = torch.tensor(1e-3, device=points.device)
+    lam = torch.full((), 1e-3, device=points.device)
     c0 = cost(T)
     for _ in range(max_iters):
         r, ok, pc = residuals(T)
@@ -248,7 +277,7 @@ def pose_only_refine(Tcw: torch.Tensor, points: torch.Tensor,
         Jw = J * w[:, None, None]
         Hm = torch.einsum("eri,erj->ij", Jw, J)
         Hm = Hm + lam * torch.diag(torch.diag(Hm)) + 1e-8 * eye6
-        dx = torch.linalg.solve(Hm, -torch.einsum("eri,er->i", Jw, r))
+        dx = torch.linalg.solve_ex(Hm, -torch.einsum("eri,er->i", Jw, r))[0]
         T_new = se3.se3_exp(dx) @ T
         better = cost(T_new) < cost(T)
         T = torch.where(better, T_new, T)

@@ -16,6 +16,7 @@ import torch
 from torch.func import jacfwd
 
 from simpleslam_tpu_torch.ops import se3
+from simpleslam_tpu_torch.ops.maskops import take
 from simpleslam_tpu_torch.ops.projection import pixels_to_normalized
 from simpleslam_tpu_torch.ops.ransac import ransac
 from simpleslam_tpu_torch.utils.precision import highest_precision
@@ -37,7 +38,7 @@ def _normalizing_transform(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(*pts.shape[:-2], 3, 3, dtype=pts.dtype, device=pts.device)
     T[..., 0, 0] = scale
     T[..., 1, 1] = scale
-    T[..., 2, 2] = 1.0
+    T[..., 2, 2].fill_(1.0)
     T[..., 0, 2] = -scale * mean[..., 0]
     T[..., 1, 2] = -scale * mean[..., 1]
     return T
@@ -79,7 +80,7 @@ def fit_homography(p0: torch.Tensor, p1: torch.Tensor,
     r2 = torch.cat([zeros, ah, -b[..., 1:2] * ah], -1)
     A = torch.cat([r1, r2], -2) * torch.cat([w, w], -1)[..., None]
     Hn = _smallest_singular_vector(A).reshape(*A.shape[:-2], 3, 3)
-    H = torch.linalg.inv(T1) @ Hn @ T0
+    H = torch.linalg.inv_ex(T1)[0] @ Hn @ T0
     h22 = H[..., 2, 2]
     h22 = torch.where(h22.abs() < _EPS, torch.full_like(h22, _EPS), h22)
     return H / h22[..., None, None]
@@ -140,7 +141,7 @@ def _transfer(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def symmetric_transfer_error_sq(H: torch.Tensor, p0: torch.Tensor,
                                 p1: torch.Tensor) -> torch.Tensor:
     """d(p1, H p0)^2 + d(p0, H^-1 p1)^2; H (..., 3, 3) -> (..., M)."""
-    Hinv = torch.linalg.inv(H)
+    Hinv = torch.linalg.inv_ex(H)[0]
     return (((_transfer(H, p0) - p1) ** 2).sum(-1)
             + ((_transfer(Hinv, p1) - p0) ** 2).sum(-1))
 
@@ -257,7 +258,7 @@ def refine_essential_sampson(E: torch.Tensor, p0n: torch.Tensor,
     z0, z1 = two_view_depths(Rs, ts, x0h, x1h)
     counts = (((z0 > 0) & (z1 > 0)).float() * w).sum(-1)
     best = torch.argmax(counts)
-    R, t = Rs[best], ts[best]
+    R, t = take(Rs, best), take(ts, best)
 
     for _ in range(iters):
         b1, b2 = _tangent_basis(t)
@@ -278,7 +279,7 @@ def refine_essential_sampson(E: torch.Tensor, p0n: torch.Tensor,
         J = jacfwd(res)(p_zero)[:, 0, :]
         r = res(p_zero)
         H = J.T @ J + 1e-8 * torch.eye(5, dtype=E.dtype, device=E.device)
-        dp = -torch.linalg.solve(H, J.T @ r)
+        dp = -torch.linalg.solve_ex(H, J.T @ r)[0]
         better = (res(dp[None]) ** 2).sum() < (r ** 2).sum()
         dp = torch.where(better, dp, torch.zeros_like(dp))
         R = se3.so3_exp(dp[:3]) @ R
@@ -330,7 +331,7 @@ def recover_pose_essential(E: torch.Tensor, p0: torch.Tensor,
     R1, R2, t = decompose_essential(E)
     Rs = torch.stack([R1, R1, R2, R2])
     ts = torch.stack([t, -t, t, -t])
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K)[0]
     ones = torch.ones_like(p0[:, :1])
     x0h = torch.cat([p0, ones], 1) @ Kinv.T
     x1h = torch.cat([p1, ones], 1) @ Kinv.T
@@ -339,7 +340,8 @@ def recover_pose_essential(E: torch.Tensor, p0: torch.Tensor,
             & valid[None, :])
     counts = good.sum(-1)
     best = torch.argmax(counts)
-    return Rs[best], ts[best], good[best], counts[best]
+    return (take(Rs, best), take(ts, best), take(good, best),
+            take(counts, best))
 
 
 @highest_precision()
@@ -347,7 +349,7 @@ def decompose_homography(H: torch.Tensor, K: torch.Tensor):
     """cv2.decomposeHomographyMat equivalent (Faugeras SVD method) ->
     (Rs (4,3,3), ts (4,3), ns (4,3)); a near-rotation H collapses to
     R = Hn (projected), t = 0."""
-    Hn = torch.linalg.inv(K) @ H @ K
+    Hn = torch.linalg.inv_ex(K)[0] @ H @ K
     U, S, Vt = torch.linalg.svd(Hn)
     d1, d2, d3 = S[0], S[1], S[2]
     s = torch.linalg.det(U) * torch.linalg.det(Vt)

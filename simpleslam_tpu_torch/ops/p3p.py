@@ -11,6 +11,7 @@ caller's RANSAC.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -22,6 +23,14 @@ from simpleslam_tpu_torch.utils.precision import highest_precision
 _EPS = 1e-12
 _NODES = np.array([0.0, 1.0, -1.0, 2.0, -2.0])
 _VINV = np.linalg.inv(np.stack([_NODES ** k for k in range(5)], axis=1))
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(dtype: torch.dtype, device: torch.device):
+    """The nodes and the inverse Vandermonde on ``device``, copied there
+    once (a copy from the host waits for the device)."""
+    return (torch.as_tensor(_NODES, dtype=dtype, device=device),
+            torch.as_tensor(_VINV.T, dtype=dtype, device=device))
 
 
 def _solve_cubic_all(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -118,9 +127,9 @@ def p3p_grunert(X: torch.Tensor, bearings: torch.Tensor):
               + 2.0 * u_num * du - 2.0 * cg * (du * den + u_num * dden))
         return g, dg
 
-    nodes = torch.as_tensor(_NODES, dtype=X.dtype, device=X.device)
+    nodes, vinv_t = _constants(X.dtype, X.device)
     vals = gden2(nodes.expand(*X.shape[:-2], 5))[0]          # (..., 5)
-    coeffs = vals @ torch.as_tensor(_VINV.T, dtype=X.dtype, device=X.device)
+    coeffs = vals @ vinv_t
     v, is_real = solve_quartic_real(coeffs[..., 4], coeffs[..., 3],
                                     coeffs[..., 2], coeffs[..., 1],
                                     coeffs[..., 0])           # (..., 4)

@@ -8,8 +8,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from simpleslam_tpu_torch.ops import se3
+from simpleslam_tpu_torch.ops.maskops import take
 from simpleslam_tpu_torch.ops.p3p import p3p_grunert
 from simpleslam_tpu_torch.ops.projection import project_points
 from simpleslam_tpu_torch.ops.ransac import sample_minimal_sets
@@ -45,6 +47,7 @@ def reproject_and_match_2d3d(
     K: torch.Tensor, Tcw_pred: torch.Tensor, *,
     img_w: int, img_h: int, radius_px: float = 12.0,
     max_hamm: float = 64.0, max_l2: float = 0.8, chunk: int = 2048,
+    n_rows: Optional[int] = None,
 ) -> Assoc2D3D:
     """Windowed best-over-ring descriptor association of map landmarks to
     frame keypoints.
@@ -54,8 +57,11 @@ def reproject_and_match_2d3d(
     last observation descriptors, gated at ``max_l2``). Each landmark takes
     its best keypoint; a keypoint claimed by several landmarks goes to the
     lowest row (``scatter_reduce`` amin), and the losers retry once on the
-    keypoints left unclaimed. Only rows that are candidates are scored, in
-    chunks of ``chunk`` rows; the rest score +inf, as in the reference.
+    keypoints left unclaimed. Rows are scored in chunks of ``chunk``; rows
+    that are no candidate score +inf, as in the reference. ``n_rows``: a
+    bound the caller knows on the host (rows at or past it are padding,
+    never candidates), so their chunks are skipped; None scores all rows.
+    Nothing is read back to the host.
     """
     if desc_cur.dtype == torch.uint8:
         raise NotImplementedError(
@@ -77,16 +83,15 @@ def reproject_and_match_2d3d(
     kp_norm = (kp_f * kp_f).sum(1)
     kp_sq = (kpts * kpts).sum(1)
 
-    rows = torch.nonzero(cand).flatten()
-    best_kp = torch.zeros((C, 2), dtype=torch.int64, device=dev)
-    best_d = torch.full((C, 2), _INF, device=dev)
+    n_live = C if n_rows is None else max(0, min(int(n_rows), C))
+    rows = torch.arange(n_live, device=dev)
     scored_parts = []
-    for s in range(0, rows.numel(), chunk):
-        rc = rows[s:s + chunk]
+    for s in range(0, n_live, chunk):
+        rc = slice(s, min(s + chunk, n_live))
         uv_c = uv_all[rc]
         d2 = (uv_c * uv_c).sum(1)[:, None] + kp_sq[None, :] \
             - 2.0 * uv_c @ kpts.T
-        window = d2 <= r2
+        window = (d2 <= r2) & cand[rc, None]
         ring = desc_ring[rc].float()                          # (CH, R, D)
         slot_ok = (torch.arange(R, device=dev)[None, :]
                    < torch.clamp(n_desc[rc], max=R)[:, None])
@@ -120,16 +125,15 @@ def reproject_and_match_2d3d(
     bk1, bd1 = best_of(kp_valid)
     has1, valid1 = resolve(bk1, bd1, torch.ones_like(bk1, dtype=torch.bool))
     taken = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
-    taken[torch.where(valid1, bk1, torch.full_like(bk1, N))] = True
+    taken.index_fill_(0, torch.where(valid1, bk1, torch.full_like(bk1, N)),
+                      True)
     bk2, bd2 = best_of(kp_valid & ~taken[:N])
     _, valid2 = resolve(bk2, bd2, has1 & ~valid1)
 
-    kp_idx = torch.zeros((C,), dtype=torch.int64, device=dev)
-    dist = torch.full((C,), _INF, device=dev)
-    valid = torch.zeros((C,), dtype=torch.bool, device=dev)
-    kp_idx[rows] = torch.where(valid1, bk1, bk2)
-    dist[rows] = torch.where(valid1, bd1, bd2)
-    valid[rows] = valid1 | valid2
+    pad = C - n_live
+    kp_idx = F.pad(torch.where(valid1, bk1, bk2), (0, pad))
+    dist = F.pad(torch.where(valid1, bd1, bd2), (0, pad), value=_INF)
+    valid = F.pad(valid1 | valid2, (0, pad))
     return Assoc2D3D(kp_idx=kp_idx, dist=dist, uv_proj=uv_all, valid=valid)
 
 
@@ -192,7 +196,7 @@ def gn_refine_pose(Tcw0: torch.Tensor, pts3d: torch.Tensor, uv: torch.Tensor,
         H = torch.einsum("mri,mrj->ij", Jw, J) \
             + damping * torch.eye(6, dtype=T.dtype, device=T.device)
         g = torch.einsum("mri,mr->i", Jw, r)
-        T = se3.se3_exp(-torch.linalg.solve(H, g)) @ T
+        T = se3.se3_exp(-torch.linalg.solve_ex(H, g)[0]) @ T
     return T
 
 
@@ -209,19 +213,10 @@ def solve_pnp_ransac(key, pts3d: torch.Tensor, uv: torch.Tensor,
     rounds of Gauss-Newton on its inliers, keeping the best-by-count
     iterate. ``n_inliers`` and ``ok`` are 0-d tensors.
 
-    Only the valid rows are scored (a map snapshot is mostly padding): the
-    k-th valid row keeps its rank, so the draws, the hypotheses and the
-    counts are the reference's, and the inlier mask is scattered back.
+    Every row is scored, the invalid ones masked, so nothing is read back
+    to the host. Minimal sets are drawn by rank among the valid rows, so a
+    caller that compacts the valid rows first draws the same sets.
     """
-    rows = torch.nonzero(valid).flatten()
-    if 0 < rows.numel() < valid.numel():
-        T, inl_c, n, ok = solve_pnp_ransac(
-            key, pts3d[rows], uv[rows], torch.ones_like(rows, dtype=torch.bool),
-            K, ransac_px, Tcw_init=Tcw_init, n_hyp=n_hyp,
-            refine_iters=refine_iters, lo_rounds=lo_rounds)
-        inl = torch.zeros_like(valid)
-        inl[rows] = inl_c
-        return T, inl, n, ok
     thresh_sq = float(ransac_px) ** 2
     uv_n = torch.stack([(uv[:, 0] - K[0, 2]) / K[0, 0],
                         (uv[:, 1] - K[1, 2]) / K[1, 1]], 1)
@@ -239,7 +234,7 @@ def solve_pnp_ransac(key, pts3d: torch.Tensor, uv: torch.Tensor,
     counts = torch.where(ok_h, inl.sum(1), torch.full_like(ok_h, -1,
                                                           dtype=torch.int64))
     best = torch.argmax(counts)
-    T_cur, inl_cur = models[best], inl[best]
+    T_cur, inl_cur = take(models, best), take(inl, best)
     T_out, inl_out = T_cur, inl_cur
     for _ in range(lo_rounds):
         T_cur = gn_refine_pose(T_cur, pts3d, uv, K, inl_cur.float(),

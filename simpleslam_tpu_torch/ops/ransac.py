@@ -13,6 +13,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from simpleslam_tpu_torch.ops.maskops import take
+
 
 def sample_minimal_sets(key, valid: torch.Tensor, k: int, n_hyp: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,5 +82,6 @@ def ransac(key, pts0: torch.Tensor, pts1: torch.Tensor, valid: torch.Tensor,
         raise ValueError(score)
     scores = torch.where(ok_h, scores, torch.full_like(scores, -float("inf")))
     best = torch.argmax(scores)
-    inliers = (res_sq[best] < thresh_sq) & valid
-    return models[best], inliers, scores[best], ok_h[0] & (scores[best] > 0)
+    inliers = (take(res_sq, best) < thresh_sq) & valid
+    score = take(scores, best)
+    return take(models, best), inliers, score, ok_h[0] & (score > 0)

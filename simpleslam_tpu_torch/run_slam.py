@@ -1,20 +1,23 @@
 """The SLAM system's per-frame state machine on the host (the counterpart of
-``simpleslam_tpu/run_slam.py::SLAMSystem``).
+``simpleslam_tpu/run_slam.py::SLAMSystem``) and the fused device loop that
+takes over after its bootstrap (``run_fused_loop``, the counterpart of
+``_run_fused_loop``).
 
 Delayed two-view bootstrap -> frame-to-map PnP tracking (widened-window
 retry, keyframe relocalisation, global relocalisation, 2D-2D essential
 fallback) -> keyframe policy -> KF-pair triangulation -> local bundle
 adjustment. Tensors live on the system's device; the map and the decisions
 live on the host. Not ported yet (they raise or are absent): lens
-undistortion, loop closure, global BA, the fused device loop,
+undistortion, loop closure (also in the fused loop), global BA,
 localisation-only mode with a resumed map, the CLI ``run``/``main`` with
 its dataloader, and visualisation.
 """
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
-from typing import List, Mapping, Optional, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +70,8 @@ class SLAMSystem:
     ``device``: None runs on CUDA and raises without it; pass "cpu" to run
     on the CPU. ``key``: the randomness source (``utils/rng.py``; default a
     ``TorchKey`` seeded from ``cfg.seed``). ``weights``: optional
-    (aliked_state_dict, lightglue_state_dict), seeded weights otherwise.
+    (aliked_state_dict, lightglue_state_dict); otherwise the trained tree
+    (``models/pipeline.py``).
 
     Counters: ``tracking_lost_count`` (frames not posed) and
     ``local_ba_solves`` (local BAs that ran a solve).
@@ -221,15 +225,20 @@ class SLAMSystem:
                 snap["n_desc"], feats.kpts, feats.desc, feats.valid,
                 self._K_t, T_pred_t, img_w=int(W), img_h=int(H),
                 radius_px=radius_px, max_hamm=cfg.match_max_hamm,
-                max_l2=cfg.match_max_l2)
-            n_cand = int(assoc.valid.sum())
+                max_l2=cfg.match_max_l2, n_rows=len(self.world_map))
+            rows = torch.nonzero(assoc.valid).flatten()
+            n_cand = rows.numel()
             if n_cand < cfg.pnp_min_inliers:
                 return None, f"too few 2D-3D candidates ({n_cand})", assoc
-            T_est, inl, n_inl, ok = pnp.solve_pnp_ransac(
-                self._site_key(frame_idx, SITE_PNP), snap["positions"],
-                feats.kpts[assoc.kp_idx], assoc.valid, self._K_t,
+            # PnP on the candidate rows only (the snapshot is mostly padding)
+            T_est, inl_c, n_inl, ok = pnp.solve_pnp_ransac(
+                self._site_key(frame_idx, SITE_PNP), snap["positions"][rows],
+                feats.kpts[assoc.kp_idx[rows]],
+                torch.ones_like(rows, dtype=torch.bool), self._K_t,
                 cfg.ransac_thresh, Tcw_init=T_pred_t,
                 n_hyp=cfg.ransac_hypotheses)
+            inl = torch.zeros_like(assoc.valid)
+            inl[rows] = inl_c
             n_inl = int(n_inl)
             if bool(ok) and n_inl >= cfg.pnp_min_inliers:
                 return (T_est, inl), "", assoc
@@ -418,9 +427,9 @@ class SLAMSystem:
                         window_size=cfg.local_ba_window,
                         max_points=cfg.local_ba_max_points,
                         max_iters=cfg.local_ba_max_iters))
-            except (RuntimeError, ValueError) as e:
+            except Exception:
                 # BA must never kill tracking (the reference's rule)
-                logger.warning("[Local BA] failed: %s", e)
+                logger.exception("[Local BA] failed; tracking continues")
         return len(new_ids)
 
     # ------------------------------------------------------------ main step
@@ -449,3 +458,68 @@ class SLAMSystem:
         with self.timer.stage("keyframe"):
             self._maybe_keyframe(frame_idx, img, feats)
         return feats
+
+
+def build_fused_loop(cfg: SLAMConfig, system: SLAMSystem,
+                     prev_feats: Features, n_frames: int):
+    """The fused loop's parts for a sequence of ``n_frames`` frames after
+    ``system`` bootstrapped: (FusedConfig, step, post-bootstrap state).
+    ``prev_feats``: the last host frame's features. Loop closure
+    (``cfg.loop_closure``) is not ported: it raises."""
+    from simpleslam_tpu_torch.core.fused import (build_fused_step,
+                                                 make_fused_config,
+                                                 state_from_host)
+    if cfg.loop_closure:
+        raise NotImplementedError(
+            "loop closure in the fused loop (apply_host_correction, "
+            "_host_assist_reloc) is not ported yet")
+    fc = make_fused_config(cfg, system.img_hw,
+                           n_kp=int(prev_feats.kpts.shape[0]),
+                           desc_dim=int(prev_feats.desc.shape[1]),
+                           log_capacity=1 << max(10, n_frames.bit_length()))
+    step = build_fused_step(fc, system.K, system.detector.fn,
+                            system.matcher.fn, system.device)
+    return fc, step, state_from_host(system, fc, prev_feats)
+
+
+def run_fused_loop(cfg: SLAMConfig, system: SLAMSystem, frames: Sequence,
+                   prev_feats: Features, start_idx: int, built=None):
+    """The fused device loop over ``frames`` (arrays or tensors of frames
+    ``start_idx``, ``start_idx + 1``, ...; their number sizes the log)
+    after ``system`` bootstrapped on the earlier frames; ``prev_feats``:
+    the last host frame's features. One step per frame
+    (``core/fused.py``), a read of the pose every ``cfg.fused_sync_every``
+    frames, and one sync of the log and the map into ``system`` at the end.
+    ``built``: :func:`build_fused_loop`'s result to run instead of building
+    one (its state is updated in place).
+
+    Returns (final state, step); ``step.host_reads`` counts the step's
+    branch reads. Loop closure (``cfg.loop_closure``) is not ported: it
+    raises."""
+    from simpleslam_tpu_torch.core.fused import sync_to_host
+    fc, step, state = built or build_fused_loop(
+        cfg, system, prev_feats, start_idx + len(frames))
+    sync_every = int(cfg.fused_sync_every)
+    t_warm = None
+    n_dispatched = 0
+    with system.timer.stage("fused_loop"):
+        for img in frames:
+            with system.timer.stage("fused_dispatch"):
+                state = step(state, torch.as_tensor(img, device=system.device))
+            n_dispatched += 1
+            if n_dispatched == 10:
+                state.Tcw.cpu()
+                t_warm = time.perf_counter()
+            if sync_every and n_dispatched % sync_every == 0:
+                with system.timer.stage("fused_sync"):
+                    state.Tcw.cpu()           # observes every step so far
+    with system.timer.stage("fused_sync"):
+        host = sync_to_host(system, state, fc)
+    if t_warm is not None and n_dispatched > 30:
+        logger.info("[FUSED] sustained %.2f frames/s over %d post-warm-up "
+                    "frames (%s syncs)",
+                    (n_dispatched - 10) / (time.perf_counter() - t_warm),
+                    n_dispatched - 10, "periodic" if sync_every else "no")
+    system.kf_count_override = int(host["kf_count"])
+    system._key = state.key
+    return state, step

@@ -1,0 +1,181 @@
+"""Synthetic corridor sequences (the counterpart of the part of
+``simpleslam_tpu/tools/synth.py`` that ``bench.py`` uses).
+
+A raycast textured corridor (ground plane, two walls, a high ceiling and a
+far wall, all static world geometry) rendered along a smooth KITTI-like
+trajectory (forward motion with gentle yaw). The texture is a fixed sum of
+random 3-D sinusoids evaluated at the ray-plane hit points, anti-aliased
+per pixel, so appearance is consistent across views: real parallax and
+stable descriptors.
+
+Each frame is one torch expression on the scene's device: the ray
+geometry in float64, the (H, W, n_waves) texture in float32, as the
+reference's numpy path computes them. The scene parameters (the random
+waves) are drawn with numpy exactly as the reference draws them, so one
+seed gives the same scene in both packages.
+
+Not ported yet: ``BoxScene``, ``PhotoScene``, the loop trajectories and
+``generate_kitti_sequence`` (the KITTI-layout writer).
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from simpleslam_tpu_torch.utils.device import resolve_device
+
+DEFAULT_K = np.array([[707.0912, 0.0, 601.8873],
+                      [0.0, 707.0912, 183.1104],
+                      [0.0, 0.0, 1.0]])
+DEFAULT_HW = (370, 1226)      # KITTI grayscale camera resolution
+
+
+def renderer_version() -> str:
+    """Short hash of this module's source, for keying caches of renders."""
+    with open(__file__, "rb") as f:
+        return hashlib.sha1(f.read()).hexdigest()[:12]
+
+
+def make_trajectory(n_frames: int, speed: float = 0.5,
+                    yaw_rate_deg: float = 0.25) -> np.ndarray:
+    """(N,4,4) T_wc camera-to-world poses: forward motion with gentle yaw."""
+    out = [np.eye(4)]
+    yaw = 0.0
+    pos = np.zeros(3)
+    for _ in range(n_frames - 1):
+        yaw += np.radians(yaw_rate_deg)
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)],
+                      [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])
+        pos = pos + R @ np.array([0.0, 0.0, speed])
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = pos
+        out.append(T)
+    return np.stack(out)
+
+
+class ProceduralTexture:
+    """Fixed random sum of sinusoids over R^3 -> [0, 255] intensity,
+    anti-aliased: each wave is attenuated by the Gaussian pixel-integration
+    factor exp(-0.5 [(footprint/2)^2 |k|^2 + (k . smear)^2]), where
+    ``footprint`` is the pixel's isotropic size on the surface (metres) and
+    ``smear`` the major half-axis of its surface ellipse at grazing
+    incidence."""
+
+    def __init__(self, seed: int = 0, n_waves: int = 48, device=None):
+        rng = np.random.default_rng(seed)
+        d = rng.normal(size=(n_waves, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        freqs = np.concatenate([rng.uniform(0.3, 1.5, n_waves // 2),
+                                rng.uniform(2.0, 8.0, n_waves - n_waves // 2)])
+        k = d * freqs[:, None] * 2 * np.pi
+        amps = 1.0 / np.sqrt(freqs)
+        self.device = resolve_device(device)
+
+        def t32(a):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
+
+        self.k = t32(k)                                  # (n, 3) rad/m
+        self.knorm = t32(freqs * 2 * np.pi)              # |k|
+        self.phase = t32(rng.uniform(0, 2 * np.pi, n_waves))
+        self.amp = t32(amps / amps.sum())
+
+    def __call__(self, p: torch.Tensor, footprint: torch.Tensor,
+                 smear_vec: torch.Tensor) -> torch.Tensor:
+        """p, smear_vec (..., 3) and footprint (...) -> (...) float32."""
+        v = p.float() @ self.k.T + self.phase
+        q = (0.5 * footprint.float()[..., None] * self.knorm) ** 2
+        q = q + (smear_vec.float() @ self.k.T) ** 2
+        s = (torch.sin(v) * (self.amp * torch.exp(-0.5 * q))).sum(-1)
+        return 127.5 + 120.0 * torch.clamp(s * 2.2, -1, 1)
+
+
+class CorridorScene:
+    """Ground plane + two walls + far wall, textured; raycast renderer on
+    the given device (None: the GPU, see ``utils/device.py``)."""
+
+    def __init__(self, seed: int = 0, ground_y: float = 1.6,
+                 wall_x: float = 10.0, hw: Tuple[int, int] = DEFAULT_HW,
+                 K: np.ndarray = DEFAULT_K, device=None):
+        self.device = resolve_device(device)
+        self.tex = ProceduralTexture(seed, device=self.device)
+        self.ground_y = ground_y
+        self.wall_x = wall_x
+        self.hw = hw
+        self.K = np.asarray(K, np.float64)
+        H, W = hw
+        u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                           np.arange(H, dtype=np.float64))
+        rays = np.stack([u, v, np.ones_like(u)], -1) @ \
+            np.linalg.inv(self.K).T
+        rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+        self._rays_cam = torch.as_tensor(rays, device=self.device)
+
+    def render(self, T_wc: np.ndarray) -> torch.Tensor:
+        """(H, W) uint8 image on the scene's device."""
+        return self.render_with_geometry(T_wc)[0]
+
+    @torch.no_grad()
+    def render_with_geometry(self, T_wc: np.ndarray):
+        """(image u8 (H,W), hit world points (H,W,3), ray depth (H,W))."""
+        T = torch.as_tensor(np.asarray(T_wc, np.float64), device=self.device)
+        C = T[:3, 3]
+        d = self._rays_cam @ T[:3, :3].T                 # (H, W, 3) world
+        H, W = self.hw
+        t_best = torch.full((H, W), float("inf"), dtype=torch.float64,
+                            device=self.device)
+        hit = torch.zeros((H, W, 3), dtype=torch.float64, device=self.device)
+        smear = torch.zeros((H, W, 3), dtype=torch.float32,
+                            device=self.device)
+        inv_f = 1.0 / float(self.K[0, 0])
+
+        def plane(axis: int, value: float, positive: bool):
+            nonlocal t_best, hit, smear
+            denom = d[..., axis]
+            t = (value - C[axis]) / torch.where(denom.abs() < 1e-9,
+                                                torch.full_like(denom, 1e-9),
+                                                denom)
+            facing = denom > 0 if positive else denom < 0
+            ok = (t > 0.2) & facing & (t < t_best)
+            p = C + t[..., None] * d
+            t_best = torch.where(ok, t, t_best)
+            hit = torch.where(ok[..., None], p, hit)
+            d_perp = d.clone()
+            d_perp[..., axis] = 0.0
+            s_vec = (0.5 * inv_f * t / torch.clamp(denom.abs(), min=1e-3)
+                     )[..., None] * d_perp
+            mag = torch.linalg.norm(s_vec, dim=-1, keepdim=True)
+            s_vec = s_vec * (torch.clamp(mag, max=25.0)
+                             / torch.clamp(mag, min=1e-12))
+            smear = torch.where(ok[..., None], s_vec.float(), smear)
+
+        plane(1, self.ground_y, True)                        # ground
+        plane(0, self.wall_x, True)                          # right wall
+        plane(0, -self.wall_x, False)                        # left wall
+        plane(1, -3.0 * self.wall_x, False)                  # high ceiling
+        far_z = float(np.floor(float(T_wc[2][3]) / 10.0) * 10.0 + 200.0)
+        plane(2, far_z, True)                                # far wall
+
+        fpx = torch.clamp(t_best, 0.0, 1e4) / float(self.K[0, 0])
+        img = self.tex(hit, fpx, smear)
+        shade = 1.0 / (1.0 + 0.004 * torch.clamp(t_best, 0, 200))
+        out = torch.clamp(img.double() * shade, 0, 255).to(torch.uint8)
+        return out, hit, t_best
+
+
+SCENE_FAMILIES = {"corridor": CorridorScene}
+
+
+def render_sequence(family: str, seed: int, hw, K, n_frames: int,
+                    speed: float, yaw_rate_deg: float, device=None):
+    """(frames (n, H, W) uint8 on the device, T_wc (n, 4, 4)): the
+    sequence ``bench.py`` renders (``render_frames_cached``), uncached."""
+    T = make_trajectory(n_frames, speed=speed, yaw_rate_deg=yaw_rate_deg)
+    scene = SCENE_FAMILIES[family](seed=seed, hw=tuple(hw), K=np.asarray(K),
+                                   device=device)
+    return torch.stack([scene.render(T[i]) for i in range(n_frames)]), T

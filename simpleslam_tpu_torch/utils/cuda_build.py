@@ -1,11 +1,12 @@
-"""Build the port's CUDA sources with ``nvcc`` into shared libraries with a
-plain C interface, loaded through ``ctypes``.
+"""Build the port's native sources into shared libraries with a plain C
+interface, loaded through ``ctypes``.
 
 A library is built at first use from the source in ``csrc/`` into
 ``simpleslam_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. ``nvcc`` compiles a plain-C-interface source in
-seconds; nothing here includes PyTorch's headers.
+unchanged one is reused. The suffix picks the toolchain: ``.cu`` sources go
+through ``nvcc`` (seconds for a plain-C-interface source; nothing here
+includes PyTorch's headers), ``.c`` sources through the host's C compiler.
 """
 from __future__ import annotations
 
@@ -15,13 +16,14 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+CC_FLAGS = ["-std=c99", "-O2", "-shared", "-fPIC"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -37,10 +39,22 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
+def cc_path() -> str:
+    for name in ("cc", "gcc", "clang"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C compiler (cc, gcc or clang) found on PATH")
+
+
+def _flags(source: str) -> List[str]:
+    return NVCC_FLAGS if source.endswith(".cu") else CC_FLAGS
+
+
 def library_path(source: str) -> str:
     """Where the library built from ``csrc/<source>`` lives."""
     with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+        digest = hashlib.sha1(f.read() + " ".join(_flags(source)).encode()
                               ).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
@@ -48,21 +62,24 @@ def library_path(source: str) -> str:
 
 def build(source: str) -> str:
     """Build ``csrc/<source>`` unless it is built already. Returns the
-    compiler's output ("" when nothing was built); raises with it if
-    ``nvcc`` fails."""
+    compiler's output ("" when nothing was built); raises with it if the
+    compiler fails."""
     lib = library_path(source)
     if os.path.exists(lib):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, source)]
+    if source.endswith(".cu"):
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v"]
+    else:
+        cmd = [cc_path(), *CC_FLAGS]
+    cmd += ["-o", tmp, os.path.join(CSRC, source)]
     run = subprocess.run(cmd, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
     if run.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source}:\n{run.stdout}")
+        raise RuntimeError(f"{cmd[0]} failed on {source}:\n{run.stdout}")
     os.replace(tmp, lib)
     return run.stdout
 

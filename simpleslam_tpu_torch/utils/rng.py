@@ -66,7 +66,9 @@ class TorchKey:
         g.manual_seed(self.state & ((1 << 63) - 1))
         u = torch.rand(tuple(shape), generator=g, device=device,
                        dtype=torch.float64)
-        hi = torch.clamp(torch.as_tensor(high, device=device), min=1)
+        hi = high.to(device) if isinstance(high, torch.Tensor) else \
+            torch.full((), int(high), dtype=torch.int64, device=device)
+        hi = torch.clamp(hi, min=1)
         return torch.minimum((u * hi).long(), hi.long() - 1)
 
 
