@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simpleslam_tpu_torch.core.types import Features
+from simpleslam_tpu_torch.models.seeding import seeded_init_
 
 _GN_EPS = 1e-6
 
@@ -191,3 +192,11 @@ def preprocess_image(img: torch.Tensor) -> torch.Tensor:
     H, W = gray.shape
     gray = F.pad(gray, (0, (-W) % 8, 0, (-H) % 8))
     return (gray / 255.0)[..., None]
+
+
+def init_aliked(generator: torch.Generator, desc_dim: int = 128,
+                dtype: torch.dtype = torch.bfloat16) -> ALIKED:
+    """An ALIKED of the given width with seeded weights (the counterpart of
+    the JAX package's ``init_aliked``; load ``from_jax_params``'s state_dict
+    for the reference's own draws)."""
+    return seeded_init_(ALIKED(desc_dim=desc_dim, dtype=dtype), generator)

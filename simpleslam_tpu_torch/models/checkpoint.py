@@ -21,6 +21,11 @@ key-value store (tensorstore's format) holding one zarr v2 array per leaf:
   'Conv_0', 'bias')``, stored under the key ``aliked.params.block1...``.
 
 CRC-32C footers are not verified; the zstd frames and the zarr shapes are.
+
+A tree the port trained (``models/train_frontend.py``) is one ``.npz``
+instead: each leaf stored under its tree path joined by ``/`` (for example
+``aliked/params/block1/Conv_0/kernel``), flax's layout and names.
+:func:`load_frontend_tree` reads either kind.
 """
 from __future__ import annotations
 
@@ -245,29 +250,64 @@ def tree_stats(tree: Mapping) -> Tuple[int, int]:
     return n, size
 
 
+def read_npz_tree(path: str) -> dict:
+    """A tree written by :func:`save_npz_tree` as nested dicts of numpy
+    arrays."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            keys = key.split("/")
+            node = tree
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = z[key]
+    return tree
+
+
+def save_npz_tree(path: str, tree: Mapping) -> None:
+    """Write a nested tree of numpy arrays as one ``.npz`` (leaves keyed by
+    their ``/``-joined path), through a temporary file renamed into place."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for k, v in node.items():
+            name = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, name)
+            else:
+                flat[name] = np.asarray(v)
+
+    walk(tree, "")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
 def checkpoint_dir() -> str:
     """``SLAM_FRONTEND_CKPT`` if set, else the repository's tree."""
     return os.environ.get(ENV_VAR, DEFAULT_DIR)
 
 
 @lru_cache(maxsize=2)
-def _read_cached(path: str) -> dict:
-    return read_tree(path)
+def _read_cached(path: str, mtime_ns: int) -> dict:
+    return read_npz_tree(path) if os.path.isfile(path) else read_tree(path)
 
 
 def load_frontend_tree(path: Optional[str] = None,
                        on_error: str = "warn") -> Optional[dict]:
     """The trained tree ``{"aliked": ..., "lightglue": ...}`` (numpy
-    leaves, shared between callers: do not modify), read once per path.
+    leaves, shared between callers: do not modify) of an orbax directory
+    or a ``.npz`` file, read once per path and modification time.
 
     With no tree at ``path``, or one that fails to read, ``on_error="warn"``
     logs a warning naming the path and returns None (the caller then keeps
     seeded weights); ``on_error="raise"`` raises."""
     path = os.path.abspath(path or checkpoint_dir())
     try:
-        if not os.path.isdir(path):
-            raise FileNotFoundError(f"no checkpoint directory at {path}")
-        tree = _read_cached(path)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        tree = _read_cached(path, os.stat(path).st_mtime_ns)
         if "aliked" not in tree or "lightglue" not in tree:
             raise ValueError(f"{path} holds no aliked/lightglue trees")
         return tree

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simpleslam_tpu_torch.core.types import Matches
+from simpleslam_tpu_torch.models.seeding import seeded_init_
 from simpleslam_tpu_torch.ops.attention import masked_attention
 
 _NEG = -1e9
@@ -185,3 +186,12 @@ def match_pair(model: LightGlue, feats0, feats1, image_hw: Tuple[int, int],
                     feats1.kpts[None], feats1.desc[None], feats1.valid[None],
                     image_hw)
     return matches_from_assignment(P[0], min_conf)
+
+
+def init_lightglue(generator: torch.Generator, desc_dim: int = 128,
+                   dim: int = 256, heads: int = 4, n_layers: int = 9,
+                   dtype: torch.dtype = torch.bfloat16) -> LightGlue:
+    """A LightGlue of the given width with seeded weights (the counterpart
+    of the JAX package's ``init_lightglue``)."""
+    return seeded_init_(LightGlue(desc_dim=desc_dim, dim=dim, heads=heads,
+                                  n_layers=n_layers, dtype=dtype), generator)

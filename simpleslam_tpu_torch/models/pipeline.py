@@ -23,6 +23,7 @@ from simpleslam_tpu_torch.core.types import Features, Matches
 from simpleslam_tpu_torch.models import checkpoint
 from simpleslam_tpu_torch.models import aliked as aliked_mod
 from simpleslam_tpu_torch.models import lightglue as lg_mod
+from simpleslam_tpu_torch.models.seeding import seeded_init_
 from simpleslam_tpu_torch.utils.device import resolve_device
 
 DESC_DIM = 128
@@ -67,6 +68,37 @@ def from_jax_params(aliked_np: Mapping, lightglue_np: Mapping
         jax_tree_to_state_dict(lightglue_np)
 
 
+def state_dict_to_jax_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`jax_tree_to_state_dict`: a torch state_dict ->
+    ``{"params": ...}`` of float32 numpy leaves with flax names (conv
+    kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out), norm
+    weights -> ``scale``)."""
+    tree: dict = {}
+    for key, t in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            else:
+                leaf = "kernel"
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for part in mod.split(".") if mod else []:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def to_jax_params(aliked_sd: Mapping[str, torch.Tensor],
+                  lightglue_sd: Mapping[str, torch.Tensor]
+                  ) -> Tuple[dict, dict]:
+    """(aliked_state_dict, lightglue_state_dict) -> the JAX package's two
+    parameter trees (numpy); the inverse of :func:`from_jax_params`."""
+    return state_dict_to_jax_tree(aliked_sd), \
+        state_dict_to_jax_tree(lightglue_sd)
+
+
 def trained_state_dicts(path: Optional[str] = None, on_error: str = "warn"
                         ) -> Optional[Tuple[Dict[str, torch.Tensor],
                                             Dict[str, torch.Tensor]]]:
@@ -88,24 +120,6 @@ def _init_weights(module: nn.Module, seed: int,
     trained = trained_state_dicts()
     if trained is not None:
         checkpoint.graft_matching(module, trained[part])
-
-
-@torch.no_grad()
-def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
-    """Deterministic init from a ``torch.Generator``, flax's defaults:
-    kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, norm scales 1."""
-    g = torch.Generator().manual_seed(int(seed))
-    for name, p in sorted(module.named_parameters()):
-        leaf = name.rpartition(".")[2]
-        is_norm = "Norm" in name
-        if leaf == "bias":
-            p.zero_()
-        elif is_norm:
-            p.fill_(1.0)
-        else:
-            fan_in = int(np.prod(p.shape[1:]))
-            p.copy_(torch.randn(p.shape, generator=g) / np.sqrt(fan_in))
-    return module
 
 
 class LearnedExtractor:

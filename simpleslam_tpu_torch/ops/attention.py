@@ -25,6 +25,17 @@ device kernel: nothing is upcast or copied first.
 :func:`masked_attention` sends CUDA tensors to the kernel and CPU tensors to
 the plain version; there is no fallback from one to the other.
 ``cuda_masked_attention.launches`` counts kernel launches.
+
+Gradients. ``_pallas_attention_diff`` (the reference's ``custom_vjp``)
+becomes :class:`MaskedAttentionFn`: its forward is the kernel, its backward
+recomputes :func:`plain_masked_attention` and takes that expression's
+vector-Jacobian product, which gives dq, dk and dv in the inputs' dtypes
+and nothing for the mask. That is what ``_pad_bwd`` does: the JAX package
+has no backward Pallas kernel, its backward is XLA's autodiff of
+``xla_masked_attention``, so the recomputed plain expression is the
+faithful port, not a stand-in for a kernel. :func:`masked_attention` takes
+the Function only for CUDA tensors when gradients are enabled and an input
+requires one (training); every other CUDA call goes straight to the kernel.
 """
 from __future__ import annotations
 
@@ -42,12 +53,15 @@ _NEG = -1e9
 
 def plain_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask_k: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version (counterpart of ``xla_masked_attention``)."""
+    """The plain PyTorch version (counterpart of ``xla_masked_attention``):
+    float32, or float64 where an input is float64 (the gradient checks)."""
     d = q.shape[-1]
-    logits = torch.einsum("bnd,bmd->bnm", q.float(), k.float()) / math.sqrt(d)
+    ct = torch.promote_types(torch.promote_types(q.dtype, v.dtype),
+                             torch.float32)
+    logits = torch.einsum("bnd,bmd->bnm", q.to(ct), k.to(ct)) / math.sqrt(d)
     logits = torch.where(mask_k[:, None, :], logits,
                          torch.full_like(logits, _NEG))
-    return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, -1), v.float())
+    return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, -1), v.to(ct))
 
 
 # (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernel's compiled variants
@@ -136,10 +150,44 @@ def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 cuda_masked_attention.launches = 0
 
 
+class MaskedAttentionFn(torch.autograd.Function):
+    """Masked attention with a gradient (``_pallas_attention_diff``):
+    forward the CUDA kernel (the plain version for CPU tensors), backward
+    the vector-Jacobian product of the recomputed plain expression.
+    ``MaskedAttentionFn.launches`` counts its kernel launches."""
+
+    launches = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_k):
+        ctx.save_for_backward(q, k, v, mask_k)
+        if q.is_cuda:
+            out = cuda_masked_attention(q, k, v, mask_k)
+            MaskedAttentionFn.launches += 1
+            return out
+        return plain_masked_attention(q, k, v, mask_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask_k = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in
+                  zip((q, k, v), ctx.needs_input_grad[:3])]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            out = plain_masked_attention(*leaves, mask_k)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None)
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask_k: torch.Tensor) -> torch.Tensor:
-    """Dispatch: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    """Dispatch: the CUDA kernel for CUDA tensors (through
+    :class:`MaskedAttentionFn` when a gradient is wanted), the plain version
+    for CPU tensors."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return MaskedAttentionFn.apply(q, k, v, mask_k)
         return cuda_masked_attention(q, k, v, mask_k)
     return plain_masked_attention(q, k, v, mask_k)

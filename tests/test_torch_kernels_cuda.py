@@ -174,6 +174,41 @@ def test_masked_attention_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["self", "cross"])
+def test_masked_attention_diff_forward_is_the_kernel(cuda, mix):
+    """At training shapes (BH 32, N 96) with gradients: the forward is one
+    kernel launch and agrees with the plain version at TOL, dq, dk and dv
+    equal plain autograd's on the same inputs and upstream gradient (the
+    backward is the same expression), and a call without gradients goes
+    straight to the kernel."""
+    q, k, v, mask = _inputs(17, 32, 96, dead_head=5)
+    g = torch.from_numpy(_inputs(18, 32, 96)[0]).to(cuda)
+    dts = MIXES[mix]
+    leaves = [torch.from_numpy(a).to(cuda, t).requires_grad_()
+              for a, t in zip((q, k, v), dts)]
+    mt = torch.from_numpy(mask).to(cuda)
+    n_kernel = attention.cuda_masked_attention.launches
+    n_diff = attention.MaskedAttentionFn.launches
+    out = attention.masked_attention(*leaves, mt)
+    assert attention.cuda_masked_attention.launches == n_kernel + 1
+    assert attention.MaskedAttentionFn.launches == n_diff + 1
+    got = torch.autograd.grad(out, leaves, g)
+    plain_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    plain = attention.plain_masked_attention(*plain_leaves, mt)
+    want = torch.autograd.grad(plain, plain_leaves, g)
+    torch.cuda.synchronize()
+    live = mt.any(1)
+    assert (out - plain).abs()[live].max().item() <= TOL
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        attention.masked_attention(*leaves, mt)
+    assert attention.MaskedAttentionFn.launches == n_diff + 1
+    assert attention.cuda_masked_attention.launches == n_kernel + 2
+
+
+@pytest.mark.cuda
 def test_ba_segment_sums_are_reproducible_on_cuda(cuda):
     """BA's block sums on the card come out the same on every run and
     equal the CPU's bit for bit (edge order within each segment)."""
