@@ -1,5 +1,5 @@
 """Key-masked attention for the LightGlue matcher: the hand-written CUDA
-kernel, its plain PyTorch version, and the dispatch between them.
+kernels, their plain PyTorch versions, and the dispatch between them.
 
 Replaces ``simpleslam_tpu/ops/pallas/attention.py``: the TPU kernel
 ``_attn_kernel`` (via ``pallas_masked_attention``) becomes
@@ -27,15 +27,17 @@ the plain version; there is no fallback from one to the other.
 ``cuda_masked_attention.launches`` counts kernel launches.
 
 Gradients. ``_pallas_attention_diff`` (the reference's ``custom_vjp``)
-becomes :class:`MaskedAttentionFn`: its forward is the kernel, its backward
-recomputes :func:`plain_masked_attention` and takes that expression's
-vector-Jacobian product, which gives dq, dk and dv in the inputs' dtypes
-and nothing for the mask. That is what ``_pad_bwd`` does: the JAX package
-has no backward Pallas kernel, its backward is XLA's autodiff of
-``xla_masked_attention``, so the recomputed plain expression is the
-faithful port, not a stand-in for a kernel. :func:`masked_attention` takes
-the Function only for CUDA tensors when gradients are enabled and an input
-requires one (training); every other CUDA call goes straight to the kernel.
+becomes :class:`MaskedAttentionFn`. Its forward is the kernel; its
+backward is one call of the backward kernel ``csrc/masked_attention_bwd.cu``
+(:func:`cuda_masked_attention_bwd`, ``.launches``; two device kernels: the
+row statistics, then the gradients), which computes the vector-Jacobian
+product of the plain expression: dq, dk and dv in the inputs' dtypes and
+nothing for the mask, as the reference's ``_pad_bwd`` (XLA's autodiff of
+``xla_masked_attention``) does. Its plain version is
+:func:`plain_masked_attention_bwd`, the same VJP in closed form, which is
+the backward for CPU tensors. :func:`masked_attention` takes the Function
+only for CUDA tensors when gradients are enabled and an input requires one
+(training); every other CUDA call goes straight to the forward kernel.
 """
 from __future__ import annotations
 
@@ -48,7 +50,17 @@ import torch
 from simpleslam_tpu_torch.utils import cuda_build
 
 SOURCE = "masked_attention.cu"
+BWD_SOURCE = "masked_attention_bwd.cu"
 _NEG = -1e9
+
+
+def _compute_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """float32, or float64 where an input is float64 (the gradient
+    checks)."""
+    ct = torch.float32
+    for t in ts:
+        ct = torch.promote_types(ct, t.dtype)
+    return ct
 
 
 def plain_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,62 +68,106 @@ def plain_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The plain PyTorch version (counterpart of ``xla_masked_attention``):
     float32, or float64 where an input is float64 (the gradient checks)."""
     d = q.shape[-1]
-    ct = torch.promote_types(torch.promote_types(q.dtype, v.dtype),
-                             torch.float32)
+    ct = _compute_dtype(q, v)
     logits = torch.einsum("bnd,bmd->bnm", q.to(ct), k.to(ct)) / math.sqrt(d)
     logits = torch.where(mask_k[:, None, :], logits,
                          torch.full_like(logits, _NEG))
     return torch.einsum("bnm,bmd->bnd", torch.softmax(logits, -1), v.to(ct))
 
 
-# (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernel's compiled variants
+def plain_masked_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, mask_k: torch.Tensor,
+                               g: torch.Tensor):
+    """(dq, dk, dv): the vector-Jacobian product of
+    :func:`plain_masked_attention` at upstream gradient ``g``, in closed
+    form (the backward kernel's plain version, and the Function's backward
+    for CPU tensors). Masked logits are replaced, so masked keys pass no
+    gradient to q or k; a head with no live key has a uniform P. Computes
+    in float32 (float64 where an input is) and rounds each gradient to its
+    input's dtype once."""
+    d = q.shape[-1]
+    ct = _compute_dtype(q, v, g)
+    qc, kc, vc, gc = (t.to(ct) for t in (q, k, v, g))
+    live = mask_k[:, None, :]
+    logits = torch.einsum("bnd,bmd->bnm", qc, kc) / math.sqrt(d)
+    p = torch.softmax(torch.where(live, logits,
+                                  torch.full_like(logits, _NEG)), -1)
+    dv = torch.einsum("bnm,bnd->bmd", p, gc)
+    dp = torch.einsum("bnd,bmd->bnm", gc, vc)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    ds = torch.where(live, ds, torch.zeros_like(ds))
+    dq = torch.einsum("bnm,bmd->bnd", ds, kc) / math.sqrt(d)
+    dk = torch.einsum("bnm,bnd->bmd", ds, qc) / math.sqrt(d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# (q/k dtype, v dtype) -> (qk_bf16, v_bf16): the kernels' compiled variants
 _VARIANTS = {(torch.float32, torch.bfloat16): (0, 1),
              (torch.bfloat16, torch.bfloat16): (1, 1),
              (torch.float32, torch.float32): (0, 0)}
 
 
-@functools.lru_cache(maxsize=None)
-def _bind():
-    """(launch, {variant: the most keys it holds}) of the kernel's library,
-    built, typed and queried once, at first use."""
-    lib = cuda_build.load(SOURCE)
-    fn = lib.masked_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float,
-                                                        ctypes.c_void_p]
+def _bind_lib(source: str, name: str, n_ptr: int, n_strides: int):
+    """(launch, {variant: the most keys it holds}) of a kernel library,
+    built, typed and queried once. The launch takes ``n_ptr`` pointers,
+    BH, Nq, Nk, ``n_strides`` strides, the variant, the scale and the
+    stream; ``<name>_max_keys`` the variant."""
+    lib = cuda_build.load(source)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong] * n_strides + [ctypes.c_int] * 2 + [
+        ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    max_keys = lib.masked_attention_max_keys
+    max_keys = getattr(lib, name + "_max_keys")
     max_keys.argtypes = [ctypes.c_int] * 2
     max_keys.restype = ctypes.c_int
     return fn, {v: max_keys(*v) for v in _VARIANTS.values()}
+
+
+@functools.lru_cache(maxsize=None)
+def _bind():
+    """The forward kernel: q, k, v, mask, out; 7 strides."""
+    return _bind_lib(SOURCE, "masked_attention", 5, 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _bind_bwd():
+    """The backward kernel: q, k, v, mask, g, stats, dq, dk, dv; 9
+    strides."""
+    return _bind_lib(BWD_SOURCE, "masked_attention_bwd", 9, 9)
+
+
+def _strides_ok(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t`` as it lies (see :func:`_strides`)."""
+    sh, sr, sd = t.stride()
+    size = t.element_size()
+    sh = sh if t.shape[0] > 1 else 0
+    sr = sr if t.shape[1] > 1 else 0
+    return not (sd != 1 or (sh * size) % 16 or (sr * size) % 16
+                or t.data_ptr() % 16)
 
 
 def _strides(t: torch.Tensor, name: str):
     """(head stride, row stride) in elements of a (BH, N, 64) operand; a
     dim of size 1 has no stride. Raises unless the head dim is contiguous
     and both strides and the base are 16-byte aligned."""
-    sh, sr, sd = t.stride()
-    sh = sh if t.shape[0] > 1 else 0
-    sr = sr if t.shape[1] > 1 else 0
-    size = t.element_size()
-    if sd != 1 or (sh * size) % 16 or (sr * size) % 16 \
-            or t.data_ptr() % 16:
+    if not _strides_ok(t):
         raise ValueError(f"{name}: the kernel takes a contiguous head dim "
                          f"and 16-byte aligned rows and heads; got strides "
                          f"{tuple(t.stride())} ({t.dtype})")
-    return sh, sr
+    sh, sr, _sd = t.stride()
+    return (sh if t.shape[0] > 1 else 0), (sr if t.shape[1] > 1 else 0)
 
 
-def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask_k: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; returns float32
-    (BH, Nq, 64). Raises on anything the kernel does not take."""
+def _operands(q, k, v, mask_k):
+    """Check what both kernels take; returns (variant, q/k/v strides, the
+    mask's head stride). Raises on anything they do not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and mask_k.is_cuda):
-        raise ValueError("cuda_masked_attention needs CUDA tensors")
+        raise ValueError("the attention kernels need CUDA tensors")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    BH, Nq, d = q.shape
+    BH, _Nq, d = q.shape
     Nk = k.shape[1]
     if d != 64 or k.shape[0] != BH or k.shape[2] != d:
         raise ValueError(f"the kernel takes head dim 64 and matching BH; got "
@@ -128,21 +184,42 @@ def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Nk > 1 and mask_k.stride(1) != 1:
         raise ValueError(f"mask: the key dim must be contiguous; got strides "
                          f"{tuple(mask_k.stride())}")
-    q_s, k_s, v_s = (_strides(t, n) for t, n in ((q, "q"), (k, "k"),
-                                                  (v, "v")))
-    m_sh = mask_k.stride(0) if BH > 1 else 0
-    fn, max_keys = _bind()
+    strides = [x for t, n in ((q, "q"), (k, "k"), (v, "v"))
+               for x in _strides(t, n)]
+    return variant, strides, (mask_k.stride(0) if BH > 1 else 0)
+
+
+def _check_keys(Nk: int, variant, max_keys) -> None:
+    """Raise past a kernel's key limit (``max_keys``: {variant: keys})."""
     if Nk > max_keys[variant]:
         raise ValueError(f"the kernel holds at most {max_keys[variant]} "
                          f"keys in this dtype mix; got {Nk}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask_k: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; returns float32
+    (BH, Nq, 64). Raises on anything the kernel does not take."""
+    return _launch(q, k, v, mask_k, _operands(q, k, v, mask_k))
+
+
+def _launch(q, k, v, mask_k, checked):
+    """:func:`cuda_masked_attention` on operands that :func:`_operands`
+    has passed (``checked``, its result)."""
+    fn, max_keys = _bind()
+    variant, strides, m_sh = checked
+    _check_keys(k.shape[1], variant, max_keys)
+    BH, Nq, d = q.shape
     out = torch.empty((BH, Nq, d), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
-             out.data_ptr(), BH, Nq, Nk, *q_s, *k_s, *v_s, m_sh, *variant,
-             1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"masked_attention kernel launch failed: CUDA "
-                           f"error {err}")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
+                 out.data_ptr(), BH, Nq, k.shape[1], *strides, m_sh, *variant,
+                 1.0 / math.sqrt(d), stream), "masked_attention")
     cuda_masked_attention.launches += 1
     return out
 
@@ -150,11 +227,59 @@ def cuda_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 cuda_masked_attention.launches = 0
 
 
+def cuda_masked_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, mask_k: torch.Tensor,
+                              g: torch.Tensor, needs=(True, True, True)):
+    """Launch the backward kernels on the current stream (row statistics,
+    then gradients): (dq, dk, dv) in q's, k's and v's dtypes, ``None``
+    where ``needs`` says so. ``g`` is the float32 upstream gradient, taken
+    strided where its head dim is contiguous and copied otherwise
+    (``.g_copies`` counts those copies). Raises on anything the kernel does
+    not take, beyond its key limit included."""
+    return _launch_bwd(q, k, v, mask_k, g, needs, _operands(q, k, v, mask_k))
+
+
+def _launch_bwd(q, k, v, mask_k, g, needs, checked):
+    """:func:`cuda_masked_attention_bwd` on operands that :func:`_operands`
+    has passed (``checked``, its result)."""
+    fn, max_keys = _bind_bwd()
+    variant, strides, m_sh = checked
+    BH, Nq, d = q.shape
+    Nk = k.shape[1]
+    _check_keys(Nk, variant, max_keys)
+    if g.dtype != torch.float32 or tuple(g.shape) != (BH, Nq, d) \
+            or not g.is_cuda:
+        raise ValueError(f"g must be float32 {(BH, Nq, d)} on the card, got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if not _strides_ok(g):
+        g = g.contiguous()
+        cuda_masked_attention_bwd.g_copies += 1
+    grads = [torch.empty((BH, n, d), dtype=t.dtype, device=q.device)
+             if need else None
+             for t, n, need in zip((q, k, v), (Nq, Nk, Nk), needs)]
+    if all(x is None for x in grads):
+        return None, None, None
+    stats = torch.empty((BH, Nq, 4), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
+                 g.data_ptr(), stats.data_ptr(),
+                 *(x.data_ptr() if x is not None else None for x in grads),
+                 BH, Nq, Nk, *strides, *_strides(g, "g"), m_sh, *variant,
+                 1.0 / math.sqrt(d), stream), "masked_attention_bwd")
+    cuda_masked_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+cuda_masked_attention_bwd.launches = 0
+cuda_masked_attention_bwd.g_copies = 0
+
+
 class MaskedAttentionFn(torch.autograd.Function):
-    """Masked attention with a gradient (``_pallas_attention_diff``):
-    forward the CUDA kernel (the plain version for CPU tensors), backward
-    the vector-Jacobian product of the recomputed plain expression.
-    ``MaskedAttentionFn.launches`` counts its kernel launches."""
+    """Masked attention with a gradient (``_pallas_attention_diff``). For
+    CUDA tensors the forward is the kernel and the backward one call of
+    :func:`cuda_masked_attention_bwd`; for CPU tensors the plain version and
+    :func:`plain_masked_attention_bwd`. No fallback from one to the other.
+    ``MaskedAttentionFn.launches`` counts its forward kernel launches."""
 
     launches = 0
 
@@ -162,21 +287,21 @@ class MaskedAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, mask_k):
         ctx.save_for_backward(q, k, v, mask_k)
         if q.is_cuda:
-            out = cuda_masked_attention(q, k, v, mask_k)
+            ctx.checked = _operands(q, k, v, mask_k)   # once for both
+            out = _launch(q, k, v, mask_k, ctx.checked)
             MaskedAttentionFn.launches += 1
             return out
         return plain_masked_attention(q, k, v, mask_k)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask_k = ctx.saved_tensors
-        leaves = [t.detach().requires_grad_(need) for t, need in
-                  zip((q, k, v), ctx.needs_input_grad[:3])]
-        wanted = [t for t in leaves if t.requires_grad]
-        with torch.enable_grad():
-            out = plain_masked_attention(*leaves, mask_k)
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in leaves),
+        needs = ctx.needs_input_grad[:3]
+        saved = ctx.saved_tensors
+        if saved[0].is_cuda:
+            grads = _launch_bwd(*saved, g, needs, ctx.checked)
+        else:
+            grads = plain_masked_attention_bwd(*saved, g)
+        return (*(x if need else None for x, need in zip(grads, needs)),
                 None)
 
 

@@ -16,7 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -82,6 +83,13 @@ def build(source: str) -> str:
         raise RuntimeError(f"{cmd[0]} failed on {source}:\n{run.stdout}")
     os.replace(tmp, lib)
     return run.stdout
+
+
+def build_all(sources: Sequence[str]) -> Dict[str, str]:
+    """Build several sources at once, one compiler process each, all
+    started together: {source: compiler output}. Raises if any fails."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return dict(zip(sources, pool.map(build, sources)))
 
 
 def load(source: str) -> ctypes.CDLL:

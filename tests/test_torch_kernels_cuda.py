@@ -16,7 +16,13 @@ the tensor cores; plain float32 rounds each product and sum once. At
 trained-scale logits (|logit| ~ 800) float32 itself is off by ~3e-5 of
 max|v|, so there both are held to a float64 run at TRAINED_TOL = 1e-4 of
 max(1, max|v|) (the CPU emulation of the scheme reads 1.9e-5 there,
-tests/test_torch_attention.py)."""
+tests/test_torch_attention.py).
+
+The backward kernel is held to the float64 VJP at GRAD_TOL (each
+gradient's worst error over its largest entry: 5e-4 float32, 2^-5 bf16),
+the bound its CPU emulation meets on a training step's attention calls
+from the trained tree (tests/test_torch_attention_bwd.py); plain float32's
+own distance is reported beside it."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +31,11 @@ from simpleslam_tpu_torch.ops import attention
 
 TOL = 2e-5
 TRAINED_TOL = 1e-4
+# The backward kernel against the float64 VJP, each gradient's worst error
+# over its largest entry: the bound its CPU emulation meets on a training
+# step's attention calls from the trained tree, about 5x that reading and
+# plain float32's (tests/test_torch_attention_bwd.py).
+GRAD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2.0 ** -5}
 F32, BF16 = torch.float32, torch.bfloat16
 MIXES = {"self": (F32, F32, BF16), "cross": (BF16, BF16, BF16),
          "f32": (F32, F32, F32)}
@@ -173,14 +184,29 @@ def test_masked_attention_kernel_rejects_what_it_cannot_take(cuda):
     assert torch.isfinite(out).all()
 
 
+def _grad_errors(got, q, k, v, mask, g):
+    """Each of dq, dk, dv against the float64 VJP, over its largest entry:
+    [(dtype, kernel error, plain float32's error)]."""
+    want = attention.plain_masked_attention_bwd(q.double(), k.double(),
+                                                v.double(), mask, g.double())
+    plain = attention.plain_masked_attention_bwd(q, k, v, mask, g)
+    out = []
+    for a, p, w in zip(got, plain, want):
+        assert a.dtype == p.dtype and a.shape == w.shape
+        scale = w.abs().max().item()
+        out.append((a.dtype, (a.double() - w).abs().max().item() / scale,
+                    (p.double() - w).abs().max().item() / scale))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mix", ["self", "cross"])
 def test_masked_attention_diff_forward_is_the_kernel(cuda, mix):
     """At training shapes (BH 32, N 96) with gradients: the forward is one
-    kernel launch and agrees with the plain version at TOL, dq, dk and dv
-    equal plain autograd's on the same inputs and upstream gradient (the
-    backward is the same expression), and a call without gradients goes
-    straight to the kernel."""
+    kernel launch, the serving kernel's output bit for bit, within TOL of
+    the plain version; the backward is one call of the backward kernel
+    (and no plain op), its dq, dk and dv within GRAD_TOL of the float64
+    VJP; a call without gradients goes straight to the kernel."""
     q, k, v, mask = _inputs(17, 32, 96, dead_head=5)
     g = torch.from_numpy(_inputs(18, 32, 96)[0]).to(cuda)
     dts = MIXES[mix]
@@ -189,23 +215,160 @@ def test_masked_attention_diff_forward_is_the_kernel(cuda, mix):
     mt = torch.from_numpy(mask).to(cuda)
     n_kernel = attention.cuda_masked_attention.launches
     n_diff = attention.MaskedAttentionFn.launches
+    n_bwd = attention.cuda_masked_attention_bwd.launches
     out = attention.masked_attention(*leaves, mt)
     assert attention.cuda_masked_attention.launches == n_kernel + 1
     assert attention.MaskedAttentionFn.launches == n_diff + 1
     got = torch.autograd.grad(out, leaves, g)
-    plain_leaves = [t.detach().clone().requires_grad_() for t in leaves]
-    plain = attention.plain_masked_attention(*plain_leaves, mt)
-    want = torch.autograd.grad(plain, plain_leaves, g)
+    assert attention.cuda_masked_attention_bwd.launches == n_bwd + 1
     torch.cuda.synchronize()
+    detached = [t.detach() for t in leaves]
+    assert torch.equal(out, attention.cuda_masked_attention(*detached, mt))
+    plain = attention.plain_masked_attention(*detached, mt)
     live = mt.any(1)
     assert (out - plain).abs()[live].max().item() <= TOL
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype
-        assert torch.equal(a, b)
+    errs = _grad_errors(got, *detached, mt, g)
+    assert all(e <= GRAD_TOL[dt] for dt, e, _p in errs), errs
+    assert not got[0][5].float().abs().any()     # the dead head
+    assert not got[1][5].float().abs().any()
     with torch.no_grad():
         attention.masked_attention(*leaves, mt)
     assert attention.MaskedAttentionFn.launches == n_diff + 1
-    assert attention.cuda_masked_attention.launches == n_kernel + 2
+    assert attention.cuda_masked_attention.launches == n_kernel + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", sorted(MIXES))
+@pytest.mark.parametrize("BH,Nq,Nk,layout", [
+    (32, 96, 96, "views"), (4, 200, 77, "views"), (3, 200, 77, "contiguous"),
+    (4, 2048, 2048, "contiguous"), (4, 2048, 2048, "views")])
+def test_masked_attention_bwd_kernel_matches_float64(cuda, BH, Nq, Nk,
+                                                     layout, mix):
+    """The backward kernel's dq, dk, dv within GRAD_TOL of the float64 VJP
+    (each over its largest entry; plain float32's own distance is in the
+    message): contiguous operands with a fully masked head, and the strided
+    views LightGlue hands over with a broadcast mask and a strided upstream
+    gradient, which give the bits of contiguous copies without a copy."""
+    q, _k, _v, _m = _inputs(19, BH, Nq)
+    _q, k, v, mask = _inputs(20, BH, Nk, dead_head=BH - 1)
+    g = _inputs(21, BH, Nq)[0]
+    if layout == "views":
+        qt, kt, vt = (_heads_view(a, t, cuda)
+                      for a, t in zip((q, k, v), MIXES[mix]))
+        gt = _heads_view(g, F32, cuda)
+        mt = torch.from_numpy(mask[:1]).to(cuda)[:, None, :].expand(
+            1, BH, Nk).reshape(BH, Nk)
+        assert not gt.is_contiguous() and mt.stride() == (0, 1)
+    else:
+        qt, kt, vt = (torch.from_numpy(a).to(cuda, t)
+                      for a, t in zip((q, k, v), MIXES[mix]))
+        gt = torch.from_numpy(g).to(cuda)
+        mt = torch.from_numpy(mask).to(cuda)
+    copies = attention.cuda_masked_attention_bwd.g_copies
+    got = attention.cuda_masked_attention_bwd(qt, kt, vt, mt, gt)
+    assert attention.cuda_masked_attention_bwd.g_copies == copies
+    again = attention.cuda_masked_attention_bwd(qt, kt, vt, mt, gt)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(a.float()).all() for a in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if layout == "views":
+        want = attention.cuda_masked_attention_bwd(
+            *(t.contiguous() for t in (qt, kt, vt, mt, gt)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert not got[0][-1].float().abs().any()
+        assert not got[1][-1].float().abs().any()
+    errs = _grad_errors(got, qt, kt, vt, mt, gt)
+    assert all(e <= GRAD_TOL[dt] for dt, e, _p in errs), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["self", "cross"])
+@pytest.mark.parametrize("needs", [(True, False, False),
+                                   (False, True, False),
+                                   (False, False, True),
+                                   (False, True, True)])
+def test_masked_attention_bwd_kernel_computes_what_is_needed(cuda, needs,
+                                                             mix):
+    """A gradient that is not needed is not computed (its pointer is null:
+    no query blocks without dq, no key blocks without dk and dv); the ones
+    that are equal the full call's bit for bit."""
+    q, k, v, mask = _inputs(24, 8, 96, dead_head=3)
+    qt, kt, vt = (torch.from_numpy(a).to(cuda, t)
+                  for a, t in zip((q, k, v), MIXES[mix]))
+    mt = torch.from_numpy(mask).to(cuda)
+    g = torch.randn(8, 96, 64, device=cuda)
+    full = attention.cuda_masked_attention_bwd(qt, kt, vt, mt, g)
+    part = attention.cuda_masked_attention_bwd(qt, kt, vt, mt, g,
+                                               needs=needs)
+    torch.cuda.synchronize()
+    for a, b, need in zip(part, full, needs):
+        assert (a is not None) == need
+        if need:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_masked_attention_bwd_kernel_rejects_without_launch(cuda):
+    """Past the key limit, and on what the kernel does not take, the
+    wrapper raises before any launch; an upstream gradient without a
+    contiguous head dim (``out.sum()``'s) is copied once, and counted."""
+    q, k, v, mask = (torch.from_numpy(a).to(cuda) for a in _inputs(22, 2, 64))
+    g = torch.randn(q.shape, device=cuda)
+    _fn, max_keys = attention._bind_bwd()
+    limit = max_keys[(0, 0)]
+    assert limit >= 2048 and set(max_keys.values()) == {limit}
+    before = attention.cuda_masked_attention_bwd.launches
+    k_long = torch.zeros(1, limit + 1, 64, device=cuda)
+    m_long = torch.ones(1, limit + 1, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match=f"at most {limit} keys"):
+        attention.cuda_masked_attention_bwd(q[:1], k_long, k_long, m_long,
+                                            g[:1])
+    with pytest.raises(ValueError, match="g must be float32"):
+        attention.cuda_masked_attention_bwd(q, k, v, mask, g.double())
+    with pytest.raises(ValueError, match="dtypes"):
+        attention.cuda_masked_attention_bwd(q, k.bfloat16(), v, mask, g)
+    assert attention.cuda_masked_attention_bwd.launches == before
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    copies = attention.cuda_masked_attention_bwd.g_copies
+    attention.MaskedAttentionFn.apply(*leaves, mask).sum().backward()
+    assert attention.cuda_masked_attention_bwd.g_copies == copies + 1
+    assert attention.cuda_masked_attention_bwd.launches == before + 1
+    want = attention.plain_masked_attention_bwd(q, k, v, mask,
+                                                torch.ones_like(q))
+    for t, w in zip(leaves, want):
+        assert (t.grad - w).abs().max().item() <= 1e-4 * max(
+            1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", ["self", "cross"])
+def test_masked_attention_diff_kernels_per_call(cuda, mix):
+    """One forward plus backward through the Function at (BH 32, N 96)
+    runs exactly three device kernels (torch.profiler): the forward, the
+    backward's row statistics and its gradients."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, mask = _inputs(23, 32, 96)
+    leaves = [torch.from_numpy(a).to(cuda, t).requires_grad_()
+              for a, t in zip((q, k, v), MIXES[mix])]
+    mt = torch.from_numpy(mask).to(cuda)
+    g = torch.randn(32, 96, 64, device=cuda)
+
+    def call():
+        torch.autograd.grad(attention.masked_attention(*leaves, mt), leaves,
+                            g)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3, names
+    assert sum("masked_attention_kernel" in n for n in names) == 1, names
+    assert sum("masked_attention_bwd_kernel" in n for n in names) == 2, names
 
 
 @pytest.mark.cuda
