@@ -2,14 +2,19 @@
 ``simpleslam_tpu/config.py`` that the ported slice reads.
 
 Each field and flag keeps the reference's name and default, so a launch
-command that sets only these flags configures either package (``bench.py``'s
-argv included). ``dataset``, ``headless``, ``no_viz3d`` and
-``loop_closure`` are parsed for that reason; the dataloader, viz and loop
-closure wait in the roadmap (the fused loop raises when ``loop_closure`` is
-set). Flags of the other paths not yet ported (dataset paths, global BA,
-classical matchers, the CLI's ``--fused`` switch and the fused loop-closure
-rescue ``--fused_rescue_after``) are absent: the parser rejects them rather
-than ignore them. ``yaml`` is imported only when a YAML file is read.
+command that sets only these flags configures either package (the README's
+and ``bench.py``'s argv included). ``headless``, ``no_viz3d`` and
+``loop_closure`` are parsed for that reason; viz and loop closure wait in
+the roadmap (``run_slam.run`` raises without ``--headless`` or with
+``--loop_closure``). Flags of the other paths not yet ported (global BA,
+resume and save of the state, localisation-only mode, the fused
+loop-closure rescue ``--fused_rescue_after``, the keyframe thumbnails'
+``--kf_thumb_hw``, and ``--fps``, which nothing in the reference reads
+either) are absent: the parser rejects them rather than ignore them. ``--matcher`` is parsed and has no
+effect: ``bf`` and ``flann`` are both the brute-force matcher, as in the
+reference. ``--device`` (the port's own) chooses
+where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
+only when a YAML file is read.
 """
 from __future__ import annotations
 
@@ -24,9 +29,12 @@ from typing import List, Optional
 class SLAMConfig:
     # dataset
     dataset: str = "kitti"                 # kitti | malaga | tum-rgbd | custom
+    base_dir: str = "../Dataset"
 
     # front-end (reference defaults: main_revamped.py:200-208)
-    detector: str = "orb"                  # only "aliked" is ported
+    detector: str = "orb"                  # orb | aliked (sift, akaze raise)
+    matcher: str = "bf"                    # bf | flann: no effect, both
+                                           # are the brute-force matcher
     use_lightglue: bool = False
     min_conf: float = 0.7
     max_features: int = 4000
@@ -91,12 +99,17 @@ class SLAMConfig:
     global_reloc_min_sim: float = 0.30     # place-vector cosine gate
 
     # the fused device loop (core/fused.py, run_slam.run_fused_loop)
+    fused: bool = False                    # run_slam.run: the fused loop
+                                           # after the host bootstrap
     fused_sync_every: int = 0              # 0 => sync the host map at the end
     fused_ba_points: int = 0               # fused-loop BA window point slice
                                            # (0 => 4096)
     map_evict_age: int = 50                # fused map: evict landmarks unseen
                                            # this many frames near capacity
     loop_closure: bool = False             # loop closure (not ported yet)
+    prefetch: int = 1                      # threaded frame prefetch depth
+    stage_all: bool = False                # fused mode: decode and upload
+                                           # every frame before the loop
 
     @classmethod
     def from_yaml(cls, path: str) -> "SLAMConfig":
@@ -118,10 +131,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", default=None, help="YAML config file")
     p.add_argument("--dataset", choices=["kitti", "malaga", "tum-rgbd",
                                          "custom"], default=d.dataset)
-    for flag in ("no_viz3d", "headless", "loop_closure"):
+    p.add_argument("--base_dir", default=d.base_dir)
+    for flag in ("no_viz3d", "headless", "loop_closure", "fused",
+                 "stage_all"):
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--detector", choices=["orb", "sift", "akaze", "aliked"],
                    default=d.detector)
+    p.add_argument("--matcher", choices=["bf", "flann"], default=d.matcher,
+                   help="no effect: both are the brute-force matcher, as "
+                        "in the reference")
+    p.add_argument("--device", default=None,
+                   help="where run_slam.main runs (default: the GPU; "
+                        "'cpu' for the CPU)")
     p.add_argument("--use_lightglue", action="store_true")
     p.add_argument("--no_reloc", dest="reloc", action="store_false")
     p.add_argument("--no_global_reloc", dest="global_reloc",

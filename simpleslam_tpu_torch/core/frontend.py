@@ -1,18 +1,38 @@
 """Feature front-end facade (the counterpart of
-``simpleslam_tpu/core/frontend.py``): the learned branch, ALIKED keypoints +
-LightGlue matching. The classical front-ends (ORB, SIFT, AKAZE) wait for a
-later slice.
+``simpleslam_tpu/core/frontend.py``): one API over the classical ORB
+front-end (``ops/features.py`` + the brute-force matcher of
+``ops/matching.py``) and the learned one (ALIKED keypoints + LightGlue
+matching). SIFT and AKAZE are not ported: they raise.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from simpleslam_tpu_torch.core.types import Features, Matches
 from simpleslam_tpu_torch.ops import epipolar
+from simpleslam_tpu_torch.ops.features import (orb_detect_and_describe,
+                                               rgb_to_gray)
+from simpleslam_tpu_torch.ops.matching import bf_match
+from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.rng import TorchKey
+
+
+@dataclass
+class Detector:
+    fn: Callable                  # (H, W) float grey on ``device`` -> Features
+    device: torch.device
+
+
+@dataclass
+class Matcher:
+    fn: Callable                  # (Features, Features) -> Matches
+    # the same matches unsorted, for the fused step (nothing downstream
+    # depends on their order)
+    fn_fast: Callable
 
 
 def init_feature_pipeline(args, device=None,
@@ -20,26 +40,39 @@ def init_feature_pipeline(args, device=None,
     """Build (detector, matcher) from the config. ``--use_lightglue`` (or
     ``detector='aliked'``) selects ALIKED + LightGlue; ``weights`` is an
     optional (aliked_state_dict, lightglue_state_dict) pair; otherwise the
-    models restore the trained tree (``models/pipeline.py``)."""
-    use_lg = bool(getattr(args, "use_lightglue", False)) or \
-        getattr(args, "detector", "orb") == "aliked"
-    if not use_lg:
-        raise NotImplementedError(
-            f"detector {getattr(args, 'detector', 'orb')!r}: the classical "
-            "front-ends are not ported yet; use --use_lightglue")
-    from simpleslam_tpu_torch.models.pipeline import (build_learned_extractor,
-                                                      build_learned_matcher)
+    models restore the trained tree (``models/pipeline.py``). ``orb`` is
+    ORB with cross-checked brute-force matching, for ``--matcher bf`` and
+    ``flann`` alike."""
     max_kp = int(getattr(args, "max_features", 4000))
     n_pad = ((max_kp + 127) // 128) * 128
-    a_sd, l_sd = weights if weights is not None else (None, None)
-    det = build_learned_extractor(args, n_pad, device=device, state_dict=a_sd)
-    return det, build_learned_matcher(args, det, state_dict=l_sd)
+    use_lg = bool(getattr(args, "use_lightglue", False)) or \
+        getattr(args, "detector", "orb") == "aliked"
+    if use_lg:
+        from simpleslam_tpu_torch.models.pipeline import (
+            build_learned_extractor, build_learned_matcher)
+        a_sd, l_sd = weights if weights is not None else (None, None)
+        det = build_learned_extractor(args, n_pad, device=device,
+                                      state_dict=a_sd)
+        return det, build_learned_matcher(args, det, state_dict=l_sd)
 
+    name = getattr(args, "detector", "orb")
+    if name != "orb":
+        raise NotImplementedError(
+            f"detector {name!r} is not ported yet (ROADMAP A.9); use orb or "
+            "--use_lightglue")
 
-def rgb_to_gray(img_bgr: torch.Tensor) -> torch.Tensor:
-    """BGR (H, W, 3) -> float32 grey (ITU-R 601, like cv2)."""
-    img = img_bgr.float()
-    return 0.114 * img[..., 0] + 0.587 * img[..., 1] + 0.299 * img[..., 2]
+    def detect(img_gray: torch.Tensor) -> Features:
+        return orb_detect_and_describe(img_gray, max_kp=n_pad,
+                                       fast_thresh=20.0)
+
+    def match(f0: Features, f1: Features) -> Matches:
+        return bf_match(f0, f1, cross_check=True)
+
+    def match_fast(f0: Features, f1: Features) -> Matches:
+        return bf_match(f0, f1, cross_check=True, sort=False)
+
+    return (Detector(fn=detect, device=resolve_device(device)),
+            Matcher(fn=match, fn_fast=match_fast))
 
 
 def feature_extractor(args, img, detector) -> Features:
@@ -82,3 +115,15 @@ def match_with_ransac(args, matcher, feats0: Features, feats1: Features,
     m = feature_matcher(args, feats0, feats1, matcher)
     return filter_matches_ransac(feats0, feats1, m,
                                  getattr(args, "ransac_thresh", 2.5), key=key)
+
+
+def detect_and_match(args, img0, img1, detector, matcher,
+                     ransac: bool = True, key=None):
+    """Detect on both frames and match them -> (feats0, feats1, matches)."""
+    f0 = feature_extractor(args, img0, detector)
+    f1 = feature_extractor(args, img1, detector)
+    if ransac:
+        m = match_with_ransac(args, matcher, f0, f1, key=key)
+    else:
+        m = feature_matcher(args, f0, f1, matcher)
+    return f0, f1, m

@@ -48,6 +48,7 @@ from simpleslam_tpu_torch.core.types import Features, Matches
 from simpleslam_tpu_torch.ops import epipolar, pnp, se3
 from simpleslam_tpu_torch.ops.ba import BAProblem, ba_solve
 from simpleslam_tpu_torch.ops.maskops import take
+from simpleslam_tpu_torch.ops.matching import unpack_bits
 from simpleslam_tpu_torch.ops.triangulation import (projection_matrix,
                                                     triangulate_two_view,
                                                     two_view_gates)
@@ -215,8 +216,9 @@ def state_from_host(system, fc: FusedConfig, prev_feats: Features
     wm, kfs, dev = system.world_map, system.kfs, system.device
     N, D = fc.n_kp, fc.desc_dim
     C, Kw, O = fc.map_capacity, fc.kf_ring, fc.obs_slots
-    snap = wm.snapshot(C, D, np.float32)
     kf_np = [kf.feats.numpy() for kf in kfs]
+    desc_dtype = kf_np[-1]["desc"].dtype         # uint8 (ORB) or float32
+    snap = wm.snapshot(C, D, desc_dtype)
 
     obs_kf = np.full((C, O), -1, np.int64)
     obs_kp = np.full((C, O), -1, np.int64)
@@ -236,12 +238,13 @@ def state_from_host(system, fc: FusedConfig, prev_feats: Features
 
     kf_pose = np.tile(np.eye(4, dtype=np.float32), (Kw, 1, 1))
     kf_kpts = np.zeros((Kw, N, 2), np.float32)
-    kf_desc = np.zeros((Kw, N, D), np.float32)
+    kf_desc = np.zeros((Kw, N, D), desc_dtype)
     kf_valid = np.zeros((Kw, N), bool)
     kf_frame_no = np.full((Kw,), -1, np.int64)
     kf_first_row = np.zeros((Kw,), np.int64)
     kf_lm_row = np.full((Kw, N), -1, np.int64)
-    kf_place = np.zeros((Kw, fc.place_grid ** 2 * D), np.float32)
+    kf_place = np.zeros((Kw, _place_dim(fc, desc_dtype == np.uint8)),
+                        np.float32)
     for kf in kfs[-Kw:]:
         s, f = kf.idx % Kw, kf_np[kf.idx]
         kf_pose[s] = np.asarray(kf.pose, np.float32)
@@ -294,12 +297,18 @@ def state_from_host(system, fc: FusedConfig, prev_feats: Features
         **_log_fields(fc, dev))
 
 
-def abstract_state(fc: FusedConfig, device=None) -> FusedState:
+def _place_dim(fc: FusedConfig, binary: bool) -> int:
+    """The place vector's width: binary descriptors pool as their bits."""
+    return fc.place_grid ** 2 * fc.desc_dim * (8 if binary else 1)
+
+
+def abstract_state(fc: FusedConfig, device=None,
+                   desc_dtype=torch.float32) -> FusedState:
     """A zeros state with the step's shapes and dtypes (no map, no
-    keyframes)."""
+    keyframes); ``desc_dtype``: torch.uint8 for binary descriptors."""
     N, D = fc.n_kp, fc.desc_dim
     C, Kw, O, R = fc.map_capacity, fc.kf_ring, fc.obs_slots, MAX_OBS_DESC
-    P = fc.place_grid ** 2 * D
+    P = _place_dim(fc, desc_dtype == torch.uint8)
     eye = torch.eye(4, device=device)
 
     def z(*shape, dtype=torch.float32, fill=0):
@@ -307,15 +316,16 @@ def abstract_state(fc: FusedConfig, device=None) -> FusedState:
 
     return FusedState(
         Tcw=eye.clone(), Tcw_prev=eye.clone(),
-        prev_kpts=z(N, 2), prev_desc=z(N, D), prev_valid=z(N, dtype=bool),
+        prev_kpts=z(N, 2), prev_desc=z(N, D, dtype=desc_dtype),
+        prev_valid=z(N, dtype=bool),
         kf_pose=eye.repeat(Kw, 1, 1), kf_kpts=z(Kw, N, 2),
-        kf_desc=z(Kw, N, D), kf_valid=z(Kw, N, dtype=bool),
+        kf_desc=z(Kw, N, D, dtype=desc_dtype), kf_valid=z(Kw, N, dtype=bool),
         kf_frame_no=z(Kw, dtype=_LONG, fill=-1),
         kf_first_row=z(Kw, dtype=_LONG),
         kf_lm_row=z(Kw, N, dtype=_LONG, fill=-1), kf_place=z(Kw, P),
         kf_count=z(dtype=_LONG), last_kf_frame_no=z(dtype=_LONG),
         lost_streak=z(dtype=_LONG), positions=z(C, 3),
-        alive=z(C, dtype=bool), desc_ring=z(C, R, D),
+        alive=z(C, dtype=bool), desc_ring=z(C, R, D, dtype=desc_dtype),
         n_desc=z(C, dtype=_LONG), obs_kf=z(C, O, dtype=_LONG, fill=-1),
         obs_kp=z(C, O, dtype=_LONG, fill=-1), obs_uv=z(C, O, 2),
         obs_n=z(C, dtype=_LONG), pid=z(C, dtype=_LONG, fill=-1),
@@ -519,9 +529,12 @@ class FusedStep:
 
     def _place_vec(self, feats: Features) -> torch.Tensor:
         """(P,) pooled place vector, the device twin of
-        ``core/loop.place_vector``."""
+        ``core/loop.place_vector`` (binary descriptors unpacked MSB-first
+        there and here, so cosines against ``kf_place`` are consistent)."""
         fc, G = self.fc, self.fc.place_grid
-        desc = feats.desc.float()
+        desc = feats.desc
+        desc = unpack_bits(desc, msb_first=True) \
+            if desc.dtype == torch.uint8 else desc.float()
         cx = torch.clamp((feats.kpts[:, 0] / fc.img_w * G).long(), 0, G - 1)
         cy = torch.clamp((feats.kpts[:, 1] / fc.img_h * G).long(), 0, G - 1)
         cell = cy * G + cx

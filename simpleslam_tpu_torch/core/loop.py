@@ -8,13 +8,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from simpleslam_tpu_torch.ops.matching import unpack_bits
+
 
 def place_vector(feats, img_hw: Tuple[int, int], grid: int) -> np.ndarray:
     """(G*G*D,) pooled place vector: per-cell mean descriptor over a G x G
-    grid, cell- and globally L2-normalised."""
+    grid, cell- and globally L2-normalised. Binary (uint8) descriptors pool
+    as their bits (G*G*8D)."""
     G = grid
     H, W = int(img_hw[0]), int(img_hw[1])
-    kpts, desc = feats.kpts, feats.desc.float()
+    kpts, desc = feats.kpts, feats.desc
+    desc = unpack_bits(desc, msb_first=True) if desc.dtype == torch.uint8 \
+        else desc.float()
     cx = torch.clamp((kpts[:, 0] / W * G).long(), 0, G - 1)
     cy = torch.clamp((kpts[:, 1] / H * G).long(), 0, G - 1)
     cell = cy * G + cx

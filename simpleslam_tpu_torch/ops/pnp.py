@@ -1,7 +1,7 @@
 """Frame-to-map tracking ops: constant-velocity prediction, windowed 2D-3D
 descriptor association and PnP-RANSAC with Gauss-Newton refinement (the
-counterpart of ``simpleslam_tpu/ops/pnp.py``; the host-API helpers and the
-binary-descriptor association path wait for the classical front-end).
+counterpart of ``simpleslam_tpu/ops/pnp.py``; the host-API helpers are not
+ported).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from simpleslam_tpu_torch.ops import se3
 from simpleslam_tpu_torch.ops.maskops import take
+from simpleslam_tpu_torch.ops.matching import unpack_bits
 from simpleslam_tpu_torch.ops.p3p import p3p_grunert
 from simpleslam_tpu_torch.ops.projection import project_points
 from simpleslam_tpu_torch.ops.ransac import sample_minimal_sets
@@ -42,7 +43,7 @@ def reproject_and_match_2d3d(
     desc_ring: torch.Tensor,   # (C, R, D) last-R observation descriptors
     n_desc: torch.Tensor,      # (C,) live ring slots
     kpts: torch.Tensor,        # (N, 2) current keypoints
-    desc_cur: torch.Tensor,    # (N, D) current float descriptors
+    desc_cur: torch.Tensor,    # (N, D) current descriptors (u8 | float)
     kp_valid: torch.Tensor,    # (N,) bool
     K: torch.Tensor, Tcw_pred: torch.Tensor, *,
     img_w: int, img_h: int, radius_px: float = 12.0,
@@ -53,8 +54,9 @@ def reproject_and_match_2d3d(
     frame keypoints.
 
     Landmarks projecting into the image window are scored against every
-    keypoint within ``radius_px`` (L2 distance, best over the ring of the
-    last observation descriptors, gated at ``max_l2``). Each landmark takes
+    keypoint within ``radius_px`` (best over the ring of the last
+    observation descriptors: Hamming distance gated at ``max_hamm`` for
+    uint8 descriptors, L2 gated at ``max_l2`` for float). Each landmark takes
     its best keypoint; a keypoint claimed by several landmarks goes to the
     lowest row (``scatter_reduce`` amin), and the losers retry once on the
     keypoints left unclaimed. Rows are scored in chunks of ``chunk``; rows
@@ -63,14 +65,11 @@ def reproject_and_match_2d3d(
     never candidates), so their chunks are skipped; None scores all rows.
     Nothing is read back to the host.
     """
-    if desc_cur.dtype == torch.uint8:
-        raise NotImplementedError(
-            "binary-descriptor association waits for the classical "
-            "front-end port")
     C = positions.shape[0]
     N = kpts.shape[0]
     dev = positions.device
-    thr = float(max_l2)
+    binary = desc_cur.dtype == torch.uint8
+    thr = float(max_hamm if binary else max_l2)
     r2 = float(radius_px) ** 2
     R = desc_ring.shape[1]
 
@@ -79,8 +78,8 @@ def reproject_and_match_2d3d(
             & (uv_all[:, 0] >= 0.0) & (uv_all[:, 0] < float(img_w))
             & (uv_all[:, 1] >= 0.0) & (uv_all[:, 1] < float(img_h))
             & (n_desc > 0))
-    kp_f = desc_cur.float()
-    kp_norm = (kp_f * kp_f).sum(1)
+    kp_f = unpack_bits(desc_cur) if binary else desc_cur.float()
+    kp_norm = (kp_f * kp_f).sum(1)                 # the bit count if binary
     kp_sq = (kpts * kpts).sum(1)
 
     n_live = C if n_rows is None else max(0, min(int(n_rows), C))
@@ -92,14 +91,17 @@ def reproject_and_match_2d3d(
         d2 = (uv_c * uv_c).sum(1)[:, None] + kp_sq[None, :] \
             - 2.0 * uv_c @ kpts.T
         window = (d2 <= r2) & cand[rc, None]
-        ring = desc_ring[rc].float()                          # (CH, R, D)
+        ring = desc_ring[rc]                                  # (CH, R, D)
+        ring = unpack_bits(ring.reshape(-1, ring.shape[-1])).reshape(
+            ring.shape[0], R, -1) if binary else ring.float()
         slot_ok = (torch.arange(R, device=dev)[None, :]
                    < torch.clamp(n_desc[rc], max=R)[:, None])
         self_n = torch.where(slot_ok, (ring * ring).sum(-1),
                              torch.full_like(slot_ok, _INF, dtype=ring.dtype))
-        dd = torch.clamp(self_n[..., None] + kp_norm[None, None, :]
-                         - 2.0 * ring @ kp_f.T, min=0.0)      # (CH, R, N)
-        best = torch.sqrt(dd.amin(1))
+        dd = self_n[..., None] + kp_norm[None, None, :] \
+            - 2.0 * ring @ kp_f.T                             # (CH, R, N)
+        best = dd.amin(1) if binary else \
+            torch.sqrt(torch.clamp(dd, min=0.0).amin(1))
         scored_parts.append(torch.where(window & (best <= thr), best,
                                         torch.full_like(best, _INF)))
     scored = (torch.cat(scored_parts) if scored_parts

@@ -1,22 +1,26 @@
-"""The SLAM system's per-frame state machine on the host (the counterpart of
-``simpleslam_tpu/run_slam.py::SLAMSystem``) and the fused device loop that
-takes over after its bootstrap (``run_fused_loop``, the counterpart of
-``_run_fused_loop``).
+"""The SLAM entry point (the counterpart of
+``simpleslam_tpu/run_slam.py``): the per-frame state machine on the host
+(``SLAMSystem``), the fused device loop that takes over after its
+bootstrap (``run_fused_loop``) and the CLI (``run``, ``main``) over a
+dataset read by ``data/dataloader.py``.
 
 Delayed two-view bootstrap -> frame-to-map PnP tracking (widened-window
 retry, keyframe relocalisation, global relocalisation, 2D-2D essential
 fallback) -> keyframe policy -> KF-pair triangulation -> local bundle
 adjustment. Tensors live on the system's device; the map and the decisions
-live on the host. Not ported yet (they raise or are absent): lens
-undistortion, loop closure (also in the fused loop), global BA,
-localisation-only mode with a resumed map, the CLI ``run``/``main`` with
-its dataloader, and visualisation.
+live on the host. Not ported yet (they raise): lens undistortion, loop
+closure (also in the fused loop), global BA, resumed and saved state,
+localisation-only mode and the live windows (``run`` needs
+``--headless``).
+
+Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
+          --base_dir <dir> --headless --no_viz3d [--fused] [--device cpu]
 """
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,9 +38,12 @@ from simpleslam_tpu_torch.core.map import Map
 from simpleslam_tpu_torch.core.triangulate import \
     triangulate_between_kfs_2view
 from simpleslam_tpu_torch.core.types import Features, Matches
+from simpleslam_tpu_torch.data import Prefetcher, Sequence as Dataset
 from simpleslam_tpu_torch.ops import epipolar, pnp, se3
+from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
 from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.profiling import StageTimer
+from simpleslam_tpu_torch.viz import Trajectory2D
 from simpleslam_tpu_torch.utils.rng import (SITE_ESS, SITE_GRELOC,
                                             SITE_KF_MATCH, SITE_KF_MATCH2,
                                             SITE_PNP, SITE_PREV_MATCH,
@@ -64,8 +71,25 @@ class BootstrapState:
         return n_matches < min_matches or (cur_idx - self.ref_idx) > max_age
 
 
+@dataclass
+class SLAMResult:
+    poses_cw: List[np.ndarray] = field(default_factory=list)
+    frame_ids: List[int] = field(default_factory=list)
+    n_keyframes: int = 0
+    n_landmarks: int = 0
+    ate: Optional[float] = None
+    fps: float = 0.0
+    n_frames: int = 0
+    tracking_lost_count: int = 0
+    map_compactions: int = 0    # fused-mode eviction passes
+    kf_frames: List[int] = field(default_factory=list)  # KF source frame ids
+    loop_closures: int = 0      # accepted loop closures (not ported: 0)
+    closure_events: List[object] = field(default_factory=list)
+    gba_runs: int = 0           # global-BA solves (not ported: 0)
+
+
 class SLAMSystem:
-    """The live pipeline, reusable by tests and benchmarks.
+    """The live pipeline, reusable by the CLI, tests and benchmarks.
 
     ``device``: None runs on CUDA and raises without it; pass "cpu" to run
     on the CPU. ``key``: the randomness source (``utils/rng.py``; default a
@@ -127,6 +151,11 @@ class SLAMSystem:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                device=self.device)
 
+    def preprocess(self, img):
+        """The frame as tracked: undistortion is not ported, and a system
+        with nonzero ``D`` refuses to start, so this is the identity."""
+        return img
+
     def extract(self, img) -> Features:
         return frontend.feature_extractor(self.cfg, img, self.detector)
 
@@ -141,9 +170,11 @@ class SLAMSystem:
         ver = self.world_map.version
         if self._snap_cache is not None and self._snap_cache[0] == ver:
             return self._snap_cache[1]
-        desc_dim = self.kfs[-1].feats.desc.shape[1] if self.kfs else 32
+        desc = self.kfs[-1].feats.desc if self.kfs else None
+        desc_dim = desc.shape[1] if desc is not None else 32
+        binary = desc is None or desc.dtype == torch.uint8
         host = self.world_map.snapshot(self.cfg.map_capacity, desc_dim,
-                                       np.float32)
+                                       np.uint8 if binary else np.float32)
         snap = {k: (torch.as_tensor(v, device=self.device) if k != "pid"
                     else v) for k, v in host.items()}
         self._snap_cache = (ver, snap)
@@ -437,6 +468,8 @@ class SLAMSystem:
                       prev_feats: Optional[Features]) -> Features:
         """One frame of the pipeline; returns this frame's features (the
         caller passes them back as ``prev_feats`` for the next frame)."""
+        with self.timer.stage("preprocess"):
+            img = self.preprocess(img)
         if self.img_hw is None:
             self.img_hw = tuple(np.shape(img)[:2])
         with self.timer.stage("extract"):
@@ -477,16 +510,18 @@ def build_fused_loop(cfg: SLAMConfig, system: SLAMSystem,
                            n_kp=int(prev_feats.kpts.shape[0]),
                            desc_dim=int(prev_feats.desc.shape[1]),
                            log_capacity=1 << max(10, n_frames.bit_length()))
-    step = build_fused_step(fc, system.K, system.detector.fn,
-                            system.matcher.fn, system.device)
+    match_fn = getattr(system.matcher, "fn_fast", None) or system.matcher.fn
+    step = build_fused_step(fc, system.K, system.detector.fn, match_fn,
+                            system.device)
     return fc, step, state_from_host(system, fc, prev_feats)
 
 
 def run_fused_loop(cfg: SLAMConfig, system: SLAMSystem, frames: Sequence,
                    prev_feats: Features, start_idx: int, built=None):
     """The fused device loop over ``frames`` (arrays or tensors of frames
-    ``start_idx``, ``start_idx + 1``, ...; their number sizes the log)
-    after ``system`` bootstrapped on the earlier frames; ``prev_feats``:
+    ``start_idx``, ``start_idx + 1``, ...: a sized sequence, whose length
+    sizes the log, or with ``built`` any iterable) after ``system``
+    bootstrapped on the earlier frames; ``prev_feats``:
     the last host frame's features. One step per frame
     (``core/fused.py``), a read of the pose every ``cfg.fused_sync_every``
     frames, and one sync of the log and the map into ``system`` at the end.
@@ -523,3 +558,159 @@ def run_fused_loop(cfg: SLAMConfig, system: SLAMSystem, frames: Sequence,
     system.kf_count_override = int(host["kf_count"])
     system._key = state.key
     return state, step
+
+
+def _run_fused_over(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem,
+                    prev_feats: Features, start_idx: int) -> None:
+    """:func:`run_fused_loop` over frames ``start_idx`` on of ``seq``:
+    decoded and uploaded ahead by a :class:`Prefetcher`, or all staged on
+    the device first with ``--stage_all``."""
+    dev = system.device
+    built = build_fused_loop(cfg, system, prev_feats, len(seq))
+    if cfg.stage_all:
+        logger.info("[FUSED] staging %d frames on device...",
+                    len(seq) - start_idx)
+        frames = [torch.as_tensor(seq.frame(i), device=dev)
+                  for i in range(start_idx, len(seq))]
+        run_fused_loop(cfg, system, frames, prev_feats, start_idx,
+                       built=built)
+        return
+    pf = Prefetcher(seq, depth=max(1, cfg.prefetch), start=start_idx,
+                    transform=lambda im: torch.as_tensor(im, device=dev))
+    try:
+        run_fused_loop(cfg, system, (img for _i, img in pf), prev_feats,
+                       start_idx, built=built)
+    finally:
+        pf.close()
+
+
+# the paths that ``run`` does not take yet, each with its roadmap item
+_NOT_PORTED = (
+    ("headless", False, "live windows (the non-headless run) wait for viz, "
+                        "ROADMAP A.13; pass --headless"),
+    ("loop_closure", True, "loop closure waits for ROADMAP A.7"),
+    ("gba_enable", True, "global BA waits for ROADMAP A.8"),
+    ("resume", True, "resuming a saved state waits for ROADMAP A.13"),
+    ("save_state", True, "saving the state waits for ROADMAP A.13"),
+    ("localize_only", True, "localisation-only mode waits for ROADMAP A.13"),
+)
+
+
+def run(cfg: SLAMConfig, device=None) -> SLAMResult:
+    """The CLI's run over ``cfg.dataset`` under ``cfg.base_dir``: the host
+    pipeline frame by frame, or with ``cfg.fused`` the host bootstrap and
+    then the fused device loop. ``device``: None is the GPU (raises without
+    one), "cpu" the CPU. Logs the ATE line (against the dataset's ground
+    truth), ``done: ...`` and the per-stage breakdown, and tries to save
+    ``trajectory_<dataset>.png`` (needs matplotlib; a warning without)."""
+    for name, bad, why in _NOT_PORTED:
+        if bool(getattr(cfg, name, not bad)) == bad:
+            raise NotImplementedError(why)
+    device = resolve_device(device)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s:%(name)s: %(message)s")
+    for name in ("main", "two_view_bootstrap", "pnp", "triangulation", "ba"):
+        logging.getLogger(name).setLevel(logging.INFO)
+
+    seq = Dataset.load(cfg)
+    gt44 = None
+    if seq.gt is not None:
+        gt44 = np.tile(np.eye(4), (len(seq.gt), 1, 1))
+        gt44[:, :3, :4] = seq.gt
+
+    img0 = seq.frame(0)
+    system = SLAMSystem(cfg, seq.K, seq.D, img_hw=img0.shape[:2],
+                        device=device)
+    traj2d = Trajectory2D(gt44, dataset=cfg.dataset)
+
+    def push_poses(frame_idx):
+        while len(traj2d.est) < len(system.world_map.poses):
+            i = len(traj2d.est)
+            fid = (system.frame_ids[i] if i < len(system.frame_ids)
+                   else frame_idx)
+            traj2d.push(fid, system.world_map.poses[i])
+
+    t_start = time.perf_counter()
+    n = len(seq)
+    start_idx = 1
+    prev_feats = system.process_frame(0, img0, None)
+    frame_idx = 0
+    if cfg.fused:
+        # the host bootstraps, then the fused device loop takes the rest
+        for frame_idx in range(start_idx, n):
+            with system.timer.stage("frame_load"):
+                img = seq.frame(frame_idx)
+            prev_feats = system.process_frame(frame_idx, img, prev_feats)
+            if system.initialised:
+                break
+        start_idx = frame_idx + 1
+        if system.initialised and start_idx < n:
+            _run_fused_over(cfg, seq, system, prev_feats, start_idx)
+        if system.initialised and system.world_map.poses:
+            push_poses(frame_idx)
+        start_idx = n
+    for frame_idx in range(start_idx, n):
+        with system.timer.stage("frame_load"):
+            img = seq.frame(frame_idx)
+        prev_feats = system.process_frame(frame_idx, img, prev_feats)
+        if system.initialised and system.world_map.poses:
+            push_poses(frame_idx)
+
+    dt = time.perf_counter() - t_start
+    res = SLAMResult(
+        poses_cw=list(system.world_map.poses),
+        frame_ids=list(system.frame_ids),
+        n_keyframes=getattr(system, "kf_count_override", 0) or len(system.kfs),
+        n_landmarks=len(system.world_map),
+        fps=(n / dt) if dt > 0 else 0.0,
+        n_frames=n,
+        tracking_lost_count=system.tracking_lost_count,
+        map_compactions=int(getattr(system, "_fused_compactions", 0)),
+        kf_frames=[system.frame_ids[i]
+                   for i in system.world_map.keyframe_indices
+                   if i < len(system.frame_ids)])
+
+    out_png = f"trajectory_{cfg.dataset}.png"
+    try:
+        traj2d.save(out_png)
+        logger.info("saved %s", out_png)
+    except Exception as e:
+        logger.warning("could not save trajectory png: %s", e)
+
+    if gt44 is not None and len(res.poses_cw) >= 2 and res.frame_ids:
+        est = np.stack(res.poses_cw)
+        gt_sel = gt44[[min(f, len(gt44) - 1) for f in res.frame_ids]]
+        res.ate, stats = ate_rmse(est, gt_sel, align="sim3")
+        logger.info("ATE-RMSE (Sim3): %.4f m over %d frames (scale %.3f)",
+                    res.ate, stats.get("n", 0), stats.get("scale", 1.0))
+        if stats.get("n_nonfinite"):
+            logger.warning("ATE computed on the finite subset: %d non-finite "
+                           "pose rows dropped (diverged run)",
+                           stats["n_nonfinite"])
+    logger.info("done: %d frames, %.2f FPS, %d KFs, %d landmarks, %d lost",
+                res.n_frames, res.fps, res.n_keyframes, res.n_landmarks,
+                res.tracking_lost_count)
+    # 'keyframe' wholly contains 'triangulate' and 'local_ba'; 'host-gap'
+    # is loop time that no stage accounts for
+    accounted = sum(t for nm, t in system.timer.totals.items()
+                    if nm not in ("triangulate", "local_ba"))
+    system.timer.totals["host-gap"] = max(dt - accounted, 0.0)
+    system.timer.counts["host-gap"] = n
+    logger.info("per-stage breakdown:\n%s", system.timer.report())
+    return res
+
+
+def main(argv=None, results: Optional[list] = None) -> int:
+    """``python -m simpleslam_tpu_torch.run_slam [flags]``: the reference's
+    flags (``config.py``) plus ``--device`` (default: the GPU).
+    ``results``: a list that receives the run's :class:`SLAMResult`."""
+    from simpleslam_tpu_torch.config import build_parser, parse_config
+    device = build_parser().parse_args(argv).device
+    res = run(parse_config(argv), device=device)
+    if results is not None:
+        results.append(res)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,18 +14,29 @@ reference's numpy path computes them. The scene parameters (the random
 waves) are drawn with numpy exactly as the reference draws them, so one
 seed gives the same scene in both packages.
 
-Not ported yet: ``BoxScene``, ``PhotoScene``, the loop trajectories and
-``generate_kitti_sequence`` (the KITTI-layout writer).
+``generate_kitti_sequence`` writes a rendered sequence in the KITTI
+odometry layout (``kitti/05/image_0/%06d.png``, ``kitti/poses/05.txt``,
+and ``kitti/05/calib.txt`` for the ``crop`` camera) with
+``utils/png.py``; ``main`` is its CLI:
+
+    python -m simpleslam_tpu_torch.tools.synth --out D --frames 40 \
+        [--device cpu]
+
+Not ported yet: ``BoxScene`` and ``PhotoScene`` (the ``--scene`` choices
+are the families of ``SCENE_FAMILIES``).
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from simpleslam_tpu_torch.utils.device import resolve_device
+from simpleslam_tpu_torch.utils.png import write_png
 
 DEFAULT_K = np.array([[707.0912, 0.0, 601.8873],
                       [0.0, 707.0912, 183.1104],
@@ -56,6 +67,47 @@ def make_trajectory(n_frames: int, speed: float = 0.5,
         T[:3, 3] = pos
         out.append(T)
     return np.stack(out)
+
+
+def _drive(yaw_steps, speed: float) -> np.ndarray:
+    """(N,4,4) T_wc poses: yaw by each step, then advance ``speed`` along
+    the camera's z axis."""
+    out = [np.eye(4)]
+    yaw, pos = 0.0, np.zeros(3)
+    for step in yaw_steps:
+        yaw += step
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)],
+                      [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])
+        pos = pos + R @ np.array([0.0, 0.0, speed])
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = pos
+        out.append(T)
+    return np.stack(out)
+
+
+def make_loop_trajectory(n_frames: int, speed: float = 0.5,
+                         closure_frac: float = 0.8) -> np.ndarray:
+    """(N,4,4) T_wc poses on a closed circle: the constant yaw rate brings
+    the camera back to its start viewpoint after ``closure_frac *
+    n_frames`` frames; then it drives the same circle again."""
+    n_close = max(int(round(n_frames * closure_frac)), 8)
+    return _drive([2.0 * np.pi / n_close] * (n_frames - 1), speed)
+
+
+def make_square_loop_trajectory(n_frames: int, speed: float = 0.5,
+                                closure_frac: float = 0.8,
+                                corner_frames: int = 24) -> np.ndarray:
+    """(N,4,4) T_wc poses on a closed rounded square: four straights joined
+    by four 90-degree arcs of ``corner_frames`` frames, closing exactly at
+    ``closure_frac * n_frames`` (then the same lap again)."""
+    n_close = max(int(round(n_frames * closure_frac)), 16)
+    n_close -= n_close % 4                       # identical quarters
+    c = min(int(corner_frames), n_close // 4 - 1)
+    s_q = n_close // 4 - c                       # straight frames per side
+    lap = ([0.0] * s_q + [np.pi / 2 / c] * c) * 4
+    return _drive([lap[i % n_close] for i in range(n_frames - 1)], speed)
 
 
 class ProceduralTexture:
@@ -179,3 +231,113 @@ def render_sequence(family: str, seed: int, hw, K, n_frames: int,
     scene = SCENE_FAMILIES[family](seed=seed, hw=tuple(hw), K=np.asarray(K),
                                    device=device)
     return torch.stack([scene.render(T[i]) for i in range(n_frames)]), T
+
+
+def generate_kitti_sequence(out_dir: str, n_frames: int = 60, seed: int = 0,
+                            hw: Tuple[int, int] = DEFAULT_HW,
+                            speed: float = 0.5,
+                            yaw_rate_deg: float = 0.25,
+                            n_points: int = 0,
+                            scene: str = "corridor",
+                            trajectory: str = "straight",
+                            closure_frac: float = 0.8,
+                            corner_frames: int = 24,
+                            calib: str = "fov", device=None) -> str:
+    """Render a sequence on ``device`` (None: the GPU) and write it in the
+    KITTI layout under ``out_dir``; returns ``out_dir``, the
+    ``--base_dir`` of ``--dataset kitti``. ``calib="fov"`` scales the KITTI
+    camera to the render size as the dataloader scales it to the frames;
+    ``"crop"`` keeps the focal, centres the principal point and writes the
+    camera to ``calib.txt``. ``trajectory``: ``straight``, ``loop`` (a
+    circle) or ``square`` (both revisit the start viewpoint).
+    (``n_points`` is accepted for compatibility and unused.)"""
+    scene_kw = {}
+    if trajectory in ("loop", "square"):
+        if trajectory == "square":
+            T_wc = make_square_loop_trajectory(n_frames, speed=speed,
+                                               closure_frac=closure_frac,
+                                               corner_frames=corner_frames)
+        else:
+            T_wc = make_loop_trajectory(n_frames, speed=speed,
+                                        closure_frac=closure_frac)
+        scene_kw["wall_x"] = float(max(10.0,
+                                       np.abs(T_wc[:, 0, 3]).max() + 6.0))
+    else:
+        T_wc = make_trajectory(n_frames, speed=speed,
+                               yaw_rate_deg=yaw_rate_deg)
+    H, W = hw
+    Ks = DEFAULT_K.copy()
+    if calib == "crop":
+        Ks[0, 2] = W / 2.0
+        Ks[1, 2] = H / 2.0
+    else:
+        Ks[0] *= W / DEFAULT_HW[1]
+        Ks[1] *= H / DEFAULT_HW[0]
+    if scene not in SCENE_FAMILIES:
+        raise NotImplementedError(
+            f"scene {scene!r} is not ported (have {sorted(SCENE_FAMILIES)})")
+    sc = SCENE_FAMILIES[scene](seed=seed, hw=tuple(hw), K=Ks, device=device,
+                               **scene_kw)
+
+    img_dir = os.path.join(out_dir, "kitti", "05", "image_0")
+    pose_dir = os.path.join(out_dir, "kitti", "poses")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(pose_dir, exist_ok=True)
+    if calib == "crop":
+        P0 = np.hstack([Ks, np.zeros((3, 1))])
+        P1 = P0.copy()
+        P1[0, 3] = -386.1448       # KITTI seq-05 stereo baseline term (fx*b)
+        with open(os.path.join(out_dir, "kitti", "05", "calib.txt"), "w") as f:
+            for name_, P_ in (("P0", P0), ("P1", P1)):
+                f.write(name_ + ": " + " ".join(f"{v:.12e}"
+                                                for v in P_.ravel()) + "\n")
+    for i in range(n_frames):
+        write_png(os.path.join(img_dir, f"{i:06d}.png"),
+                  sc.render(T_wc[i]).cpu().numpy())
+    np.savetxt(os.path.join(pose_dir, "05.txt"),
+               T_wc[:, :3, :4].reshape(n_frames, 12))
+    return out_dir
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser("synth")
+    p.add_argument("--out", required=True)
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--speed", type=float, default=0.5)
+    p.add_argument("--yaw_rate_deg", type=float, default=0.25)
+    p.add_argument("--scene", choices=sorted(SCENE_FAMILIES),
+                   default="corridor")
+    p.add_argument("--trajectory", choices=["straight", "loop", "square"],
+                   default="straight",
+                   help="'loop' drives a closed circle, 'square' a closed "
+                        "rounded square; both revisit the start viewpoint")
+    p.add_argument("--closure_frac", type=float, default=0.8,
+                   help="loop/square: fraction of frames at which the lap "
+                        "closes")
+    p.add_argument("--corner_frames", type=int, default=24,
+                   help="square: frames per 90-degree corner arc")
+    p.add_argument("--calib", choices=["fov", "crop"], default="fov",
+                   help="'fov' rescales the camera to the render size; "
+                        "'crop' keeps the focal and writes calib.txt")
+    p.add_argument("--hw", type=int, nargs=2, default=list(DEFAULT_HW),
+                   metavar=("H", "W"),
+                   help="render resolution (default: KITTI's 370 1226)")
+    p.add_argument("--device", default=None,
+                   help="render device (default: the GPU; 'cpu' for the "
+                        "CPU)")
+    a = p.parse_args(argv)
+    base = generate_kitti_sequence(a.out, a.frames, a.seed,
+                                   hw=(a.hw[0], a.hw[1]), speed=a.speed,
+                                   yaw_rate_deg=a.yaw_rate_deg, scene=a.scene,
+                                   trajectory=a.trajectory,
+                                   closure_frac=a.closure_frac,
+                                   corner_frames=a.corner_frames,
+                                   calib=a.calib, device=a.device)
+    print(f"synthetic KITTI sequence at {base} "
+          f"(use --dataset kitti --base_dir {base})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

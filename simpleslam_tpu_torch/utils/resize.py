@@ -10,6 +10,11 @@ of the last two axes is ``Wy @ x @ Wx^T``. The matrices reproduce:
   inside the input. ``F.interpolate(mode="bicubic")`` uses a = -0.75 and
   clamps at the edges, which differs by up to 0.1 on data in [0, 1] when
   ``models/train.py::_smooth_noise`` upsamples its coarse grids;
+* :func:`resize_linear_like_jax`: ``jax.image.resize(..., "linear")``, the
+  same scheme with the triangle kernel: when shrinking by 1.2 (the ORB
+  pyramid, ``ops/features.py``) each output averages about 2.4 inputs.
+  Neither ``F.interpolate(mode="bilinear")`` nor :func:`resize_linear`
+  widens the kernel;
 * :func:`resize_linear`: cv2's ``INTER_LINEAR`` on float32 (half-pixel
   centres; a source position left of the first pixel or right of the last
   takes that pixel);
@@ -21,6 +26,7 @@ of the last two axes is ``Wy @ x @ Wx^T``. The matrices reproduce:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -45,6 +51,24 @@ def bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
     x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
         / kernel_scale
     w = _keys_cubic(x).astype(f32)
+    total = w.sum(0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0).astype(f32)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(f32).T
+
+
+def triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) weights of ``jax.image.resize``'s linear along one
+    axis (``compute_weight_mat``: the scale n_out / n_in in double, then
+    float32 arithmetic; antialias on)."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
     total = w.sum(0, keepdims=True, dtype=f32)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0).astype(f32)
@@ -107,6 +131,26 @@ def resize_bicubic_like_jax(x: torch.Tensor, out_hw: Tuple[int, int]
     H, W = out_hw
     return _apply(x, bicubic_weights(x.shape[-2], H),
                   bicubic_weights(x.shape[-1], W))
+
+
+@functools.lru_cache(maxsize=64)
+def _triangle_matrix(n_in: int, n_out: int, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`triangle_weights` on ``device``, made once per shape (the ORB
+    pyramid resizes every frame to the same sizes; a copy from the host
+    would wait for the device)."""
+    return torch.as_tensor(triangle_weights(n_in, n_out), dtype=dtype,
+                           device=device)
+
+
+def resize_linear_like_jax(x: torch.Tensor, out_hw: Tuple[int, int]
+                           ) -> torch.Tensor:
+    """``jax.image.resize(x, (..., H, W), "linear")`` of the last two axes
+    of a float tensor."""
+    H, W = out_hw
+    wy = _triangle_matrix(x.shape[-2], H, x.dtype, x.device)
+    wx = _triangle_matrix(x.shape[-1], W, x.dtype, x.device)
+    return wy @ x @ wx.T
 
 
 def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -84,7 +84,8 @@ def cuda():
 @pytest.mark.parametrize("BH,Nq,Nk,mix", [
     (4, 256, 256, "f32"), (4, 2048, 2048, "f32"), (4, 2048, 2048, "cross"),
     (3, 200, 77, "f32"), (4, 256, 256, "self"), (4, 2048, 2048, "self"),
-    (3, 200, 77, "self"), (3, 200, 77, "cross")])
+    (3, 200, 77, "self"), (3, 200, 77, "cross"), (4, 4096, 4096, "f32"),
+    (4, 4096, 4096, "self"), (4, 4096, 4096, "cross")])
 def test_masked_attention_kernel_matches_plain(cuda, BH, Nq, Nk, mix):
     """Contiguous operands in each dtype mix, with a fully masked head."""
     q, _k, _v, _m = _inputs(6, BH, Nq)
@@ -105,7 +106,8 @@ def test_masked_attention_kernel_matches_plain(cuda, BH, Nq, Nk, mix):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mix", sorted(MIXES))
-@pytest.mark.parametrize("BH,Nq,Nk", [(4, 2048, 2048), (4, 200, 77)])
+@pytest.mark.parametrize("BH,Nq,Nk", [(4, 2048, 2048), (4, 4096, 4096),
+                                      (4, 200, 77)])
 def test_masked_attention_kernel_takes_lightglue_views(cuda, BH, Nq, Nk, mix):
     """Strided q/k/v views and a broadcast mask (head stride 0), as
     models/lightglue.py hands them over, give the result of contiguous

@@ -357,8 +357,8 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     with pytest.raises(NotImplementedError, match="undistortion"):
         SLAMSystem(SLAMConfig(use_lightglue=True), K,
                    D=np.array([0.1, 0.0, 0.0, 0.0]), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SLAMSystem(SLAMConfig(), K, device="cpu")
+    with pytest.raises(NotImplementedError, match="sift"):
+        SLAMSystem(SLAMConfig(detector="sift"), K, device="cpu")
 
 
 @pytest.mark.parametrize("argv", [
@@ -373,6 +373,10 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
      "--global_reloc_after", "5", "--global_reloc_min_sim", "0.4",
      "--loop_grid", "3", "--assoc_wide_factor", "3", "--mvt_rep_err", "1.5",
      "--loop_closure", "--no_global_reloc"],
+    # the README's CLI flags
+    ["--dataset", "kitti", "--base_dir", "/data/synth", "--headless",
+     "--no_viz3d", "--fused", "--prefetch", "2", "--stage_all", "--matcher",
+     "flann"],
 ])
 def test_config_matches_reference(argv):
     """Every field of the port's config parses as the reference's field of
@@ -385,11 +389,15 @@ def test_config_matches_reference(argv):
         f.name: getattr(ref, f.name) for f in dataclasses.fields(port)}
 
 
-@pytest.mark.parametrize("argv", [["--fused"], ["--fused_rescue_after", "12"],
-                                  ["--gba_enable"]])
+@pytest.mark.parametrize("argv", [["--resume", "x"],
+                                  ["--fused_rescue_after", "12"],
+                                  ["--gba_enable"], ["--fps", "5"],
+                                  ["--kf_thumb_hw", "320", "180"]])
 def test_config_rejects_flags_of_unported_paths(argv):
-    """The CLI's fused switch and the loop-closure rescue have no reader in
-    the port yet: the parser refuses them instead of ignoring them."""
+    """Resuming a saved state, the loop-closure rescue, global BA, the
+    keyframe thumbnails' size and ``--fps`` (read by nothing in the
+    reference either) have no reader in the port: the parser refuses them
+    instead of ignoring them."""
     from simpleslam_tpu.config import parse_config as jparse
     from simpleslam_tpu_torch.config import parse_config
     jparse(argv)
