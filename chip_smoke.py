@@ -19,7 +19,9 @@ Phases:
               cross: all bf16) and all-float32, as the strided views
               LightGlue hands over and at a ragged (3, 200, 77); at
               trained-scale logits (~800) against float64; device kernels
-              per call (torch.profiler, 1 expected); times of the kernel,
+              per call (torch.profiler, 1 expected), and the backward
+              kernel's at (BH 32, N 96) and (BH 4, N 2048) beside its
+              library's rule (a reading); times of the kernel,
               the plain version, SDPA float32 (the yardstick) and SDPA
               bf16 (a reading) in each main-path mix: back-to-back calls
               (``ms``), device time alone (``device_ms``) and the host's
@@ -79,7 +81,8 @@ Phases:
               N 96) in both mixes the kernel's forward, the backward
               kernel and its plain version, the Function's, the plain
               version's and SDPA float32's forward plus backward, with
-              the bounds;
+              the bounds; at (BH 4, N 2048) the backward kernel and SDPA
+              float32's backward alone;
   7. cli      the README's commands through the port's CLIs: 40 corridor
               frames at 370x1226 rendered on the card and written as PNG
               by ``tools.synth``'s ``main``; ``run_slam.main`` for the
@@ -688,7 +691,10 @@ def call_times(fn, iters: int = 20, warmup: int = 3,
       device_ms  the same calls queued behind a device-side sleep, so only
                  their device time enters;
       host_us    the host's time per call while it queues them.
-    Raises if the sleep ended before the host had queued every call."""
+    Where the sleep ended before the host had queued every call, the
+    queued reading is taken again behind a sleep sized from the host time
+    just measured (twice as long), up to three times; raises if it still
+    ends first."""
     import torch
     for _ in range(warmup):
         fn()
@@ -700,21 +706,23 @@ def call_times(fn, iters: int = 20, warmup: int = 3,
     b.record()
     torch.cuda.synchronize()
     ms = a.elapsed_time(b) / iters
-    s.record()
-    torch.cuda._sleep(sleep_cycles)
-    a.record()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_ms = 1e3 * (time.perf_counter() - t)
-    b.record()
-    torch.cuda.synchronize()
-    if host_ms >= s.elapsed_time(a):
-        raise RuntimeError(f"device sleep {s.elapsed_time(a)} ms ended "
-                           f"before the host queued {iters} calls "
-                           f"({host_ms} ms)")
-    return {"ms": ms, "device_ms": a.elapsed_time(b) / iters,
-            "host_us": 1e3 * host_ms / iters}
+    for _ in range(4):
+        s.record()
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        b.record()
+        torch.cuda.synchronize()
+        slept_ms = s.elapsed_time(a)
+        if host_ms < slept_ms:
+            return {"ms": ms, "device_ms": a.elapsed_time(b) / iters,
+                    "host_us": 1e3 * host_ms / iters}
+        sleep_cycles = int(sleep_cycles * 2.0 * host_ms / slept_ms) + 1
+    raise RuntimeError(f"device sleep {slept_ms} ms ended before the host "
+                       f"queued {iters} calls ({host_ms} ms)")
 
 
 def device_kernels(fn) -> list:
@@ -806,7 +814,7 @@ def run_kernel_phase(dev) -> dict:
     kernel, plain = attention.cuda_masked_attention, \
         attention.plain_masked_attention
     res = {"max_abs_err": {}, "trained_scale": {}, "kernels_per_call": {},
-           "times_ms": {}}
+           "bwd_kernels_per_call": {}, "times_ms": {}}
 
     def check(name, q, k, v, m):
         got = kernel(q, k, v, m)
@@ -874,6 +882,19 @@ def run_kernel_phase(dev) -> dict:
             if len(launched) != 1:
                 raise RuntimeError(f"{mix}, N {N}: a call ran {len(launched)}"
                                    f" device kernels, not 1: {launched}")
+        # the backward kernel's device kernels per call at the training
+        # shape and at N 2048 (the library's rule: 1 and 2), the most that
+        # any of three profiler sessions records (a session now and then
+        # records fewer than ran; late in this script, none at all)
+        for BH, N in ((32, 96), (4, 2048)):
+            bq, bk, bv, bm = attention_inputs(17, BH, N, dev, torch.float32)
+            bq, bk, bv = (t.to(d) for t, d in zip((bq, bk, bv), dts))
+            bg = torch.randn(bq.shape, device=dev)
+            res["bwd_kernels_per_call"][f"{mix}_{BH}x{N}"] = {
+                "recorded": max(len(device_kernels(
+                    lambda: attention.cuda_masked_attention_bwd(
+                        bq, bk, bv, bm, bg))) for _ in range(3)),
+                "rule": attention.bwd_kernels_per_call(N, N)}
         q32, k32, v32 = (t.float()[:, None] for t in (q, k, v))
         q16, k16, v16 = (t.bfloat16()[:, None] for t in (q, k, v))
         sdpa_mask = m[:, None, None, :]
@@ -1767,6 +1788,7 @@ def main() -> None:
     # lines)
     t_self = kres["times_ms"]["self"]
     d_self = tres["times_ms"]["self"]
+    d_cross = tres["times_ms"]["cross"]
     print(json.dumps({"kernels": [{
         "name": "masked_attention",
         "route": "cuda",
@@ -1818,7 +1840,23 @@ def main() -> None:
         d_self["bwd_bound_bytes"] else "bytes",
         "library_ms": d_self["sdpa_f32_backward"]["ms"],
         "library_device_ms": d_self["sdpa_f32_backward"]["device_ms"],
+        "launches_per_call":
+        kres["bwd_kernels_per_call"]["self_32x96"]["recorded"],
+        "ms_4x2048": d_self["backward_kernel_4x2048"]["ms"],
+        "device_ms_4x2048": d_self["backward_kernel_4x2048"]["device_ms"],
+        "host_us_4x2048": d_self["backward_kernel_4x2048"]["host_us"],
+        "bound_ms_4x2048": max(d_self["bwd_bound_ops_4x2048"],
+                               d_self["bwd_bound_bytes_4x2048"]),
+        "bound_by_4x2048": "operations" if d_self["bwd_bound_ops_4x2048"]
+        >= d_self["bwd_bound_bytes_4x2048"] else "bytes",
         "library_ms_4x2048": d_self["sdpa_f32_backward_4x2048"]["ms"],
+        "library_device_ms_4x2048":
+        d_self["sdpa_f32_backward_4x2048"]["device_ms"],
+        "launches_per_call_4x2048":
+        kres["bwd_kernels_per_call"]["self_4x2048"]["recorded"],
+        "cross_device_ms": d_cross["backward_kernel"]["device_ms"],
+        "cross_device_ms_4x2048":
+        d_cross["backward_kernel_4x2048"]["device_ms"],
     }]}), flush=True)
     log("total", t_all)
     print(smi, flush=True)

@@ -29,8 +29,10 @@ the plain version; there is no fallback from one to the other.
 Gradients. ``_pallas_attention_diff`` (the reference's ``custom_vjp``)
 becomes :class:`MaskedAttentionFn`. Its forward is the kernel; its
 backward is one call of the backward kernel ``csrc/masked_attention_bwd.cu``
-(:func:`cuda_masked_attention_bwd`, ``.launches``; two device kernels: the
-row statistics, then the gradients), which computes the vector-Jacobian
+(:func:`cuda_masked_attention_bwd`, ``.launches``; one device kernel where a
+head's blocks fit one thread-block cluster, N <= 512 as in training, else
+two: the row statistics, then the gradients; :func:`bwd_kernels_per_call`
+says which), which computes the vector-Jacobian
 product of the plain expression: dq, dk and dv in the inputs' dtypes and
 nothing for the mask, as the reference's ``_pad_bwd`` (XLA's autodiff of
 ``xla_masked_attention``) does. Its plain version is
@@ -137,6 +139,47 @@ def _bind_bwd():
     return _bind_lib(BWD_SOURCE, "masked_attention_bwd", 9, 9)
 
 
+def bwd_kernels_per_call(Nq: int, Nk: int) -> int:
+    """The device kernels one backward call launches at (Nq, Nk), whatever
+    gradients are wanted: 1 where a head's key and query blocks (128 rows
+    each) fit one cluster of 8, else 2 (the kernel library's own rule)."""
+    fn = cuda_build.load(BWD_SOURCE).masked_attention_bwd_kernels
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn(Nq, Nk)
+
+
+def _raw_stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on CUDA tensor ``t``'s device,
+    from PyTorch's raw getter (no ``torch.cuda.Stream`` built per call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _bwd_buffers(q, k, v, needs):
+    """(stats, [dq, dk, dv]) as views of one buffer per dtype: the float32
+    statistics scratch (2, BH, Nq, 4) first (a partial record per row and
+    key half), then each wanted gradient in its input's dtype (None where
+    not wanted). Every view starts 16-byte aligned (each is a multiple of
+    64 elements)."""
+    BH, Nq, d = q.shape
+    Nk = k.shape[1]
+    parts = [("stats", torch.float32, (2, BH, Nq, 4))]
+    parts += [(i, t.dtype, (BH, n, d)) for i, (t, n, need) in
+              enumerate(zip((q, k, v), (Nq, Nk, Nk), needs)) if need]
+    sizes = {}
+    for _n, dt, shape in parts:
+        sizes[dt] = sizes.get(dt, 0) + math.prod(shape)
+    bufs = {dt: torch.empty(n, dtype=dt, device=q.device)
+            for dt, n in sizes.items()}
+    offs = dict.fromkeys(sizes, 0)
+    views = {}
+    for name, dt, shape in parts:
+        n = math.prod(shape)
+        views[name] = bufs[dt][offs[dt]:offs[dt] + n].view(shape)
+        offs[dt] += n
+    return views["stats"], [views.get(i) for i in range(3)]
+
+
 def _strides_ok(t: torch.Tensor) -> bool:
     """Whether the kernels take ``t`` as it lies (see :func:`_strides`)."""
     sh, sr, sd = t.stride()
@@ -216,7 +259,7 @@ def _launch(q, k, v, mask_k, checked):
     _check_keys(k.shape[1], variant, max_keys)
     BH, Nq, d = q.shape
     out = torch.empty((BH, Nq, d), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _raw_stream(q)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
                  out.data_ptr(), BH, Nq, k.shape[1], *strides, m_sh, *variant,
                  1.0 / math.sqrt(d), stream), "masked_attention")
@@ -230,8 +273,9 @@ cuda_masked_attention.launches = 0
 def cuda_masked_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, mask_k: torch.Tensor,
                               g: torch.Tensor, needs=(True, True, True)):
-    """Launch the backward kernels on the current stream (row statistics,
-    then gradients): (dq, dk, dv) in q's, k's and v's dtypes, ``None``
+    """Launch the backward kernel on the current stream (one or two device
+    kernels, :func:`bwd_kernels_per_call`): (dq, dk, dv) in q's, k's and
+    v's dtypes, ``None``
     where ``needs`` says so. ``g`` is the float32 upstream gradient, taken
     strided where its head dim is contiguous and copied otherwise
     (``.g_copies`` counts those copies). Raises on anything the kernel does
@@ -254,13 +298,10 @@ def _launch_bwd(q, k, v, mask_k, g, needs, checked):
     if not _strides_ok(g):
         g = g.contiguous()
         cuda_masked_attention_bwd.g_copies += 1
-    grads = [torch.empty((BH, n, d), dtype=t.dtype, device=q.device)
-             if need else None
-             for t, n, need in zip((q, k, v), (Nq, Nk, Nk), needs)]
-    if all(x is None for x in grads):
+    if not any(needs):
         return None, None, None
-    stats = torch.empty((BH, Nq, 4), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stats, grads = _bwd_buffers(q, k, v, needs)
+    stream = _raw_stream(q)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_k.data_ptr(),
                  g.data_ptr(), stats.data_ptr(),
                  *(x.data_ptr() if x is not None else None for x in grads),

@@ -114,6 +114,34 @@ def test_function_cpu_backward_honours_needs_input_grad(wanted):
         attention.cuda_masked_attention_bwd(q, k, v, mask, g)
 
 
+@pytest.mark.parametrize("mix", sorted(MIXES))
+@pytest.mark.parametrize("wanted", ["q", "kv", "v", "qkv"])
+def test_bwd_buffers_are_disjoint_aligned_views(mix, wanted):
+    """The backward kernel's outputs and statistics scratch: one buffer
+    per dtype, each gradient a (BH, N, 64) view in its input's dtype (None
+    where not wanted), the float32 statistics (2, BH, Nq, 4) first; every
+    view 16-byte aligned and none overlapping another."""
+    dts = [T_DT[d] for d in MIXES[mix]]
+    q = torch.zeros(3, 37, 64, dtype=dts[0])
+    k, v = (torch.zeros(3, 53, 64, dtype=dt) for dt in dts[1:])
+    needs = tuple(name in wanted for name in "qkv")
+    stats, grads = attention._bwd_buffers(q, k, v, needs)
+    assert stats.dtype == torch.float32 and stats.shape == (2, 3, 37, 4)
+    views = [stats]
+    for t, x, need in zip((q, k, v), grads, needs):
+        assert (x is not None) == need
+        if need:
+            assert x.dtype == t.dtype and x.shape == t.shape
+            assert x.is_contiguous()
+            views.append(x)
+    spans = sorted((x.data_ptr(), x.data_ptr() + x.numel() * x.element_size())
+                   for x in views)
+    assert all(a % 16 == 0 for a, _b in spans)
+    assert all(b <= a2 for (_a, b), (a2, _b2) in zip(spans, spans[1:]))
+    assert len({x.untyped_storage().data_ptr() for x in views}) == len(
+        {x.dtype for x in views})
+
+
 # --------------------------------------------------------------------------- #
 # The backward kernel's arithmetic, emulated in plain torch on the CPU
 # --------------------------------------------------------------------------- #
