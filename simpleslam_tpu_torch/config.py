@@ -3,14 +3,14 @@
 
 Each field and flag keeps the reference's name and default, so a launch
 command that sets only these flags configures either package (the README's
-and ``bench.py``'s argv included). ``headless``, ``no_viz3d`` and
-``loop_closure`` are parsed for that reason; viz and loop closure wait in
-the roadmap (``run_slam.run`` raises without ``--headless`` or with
-``--loop_closure``). Flags of the other paths not yet ported (global BA,
-resume and save of the state, localisation-only mode, the fused
-loop-closure rescue ``--fused_rescue_after``, the keyframe thumbnails'
-``--kf_thumb_hw``, and ``--fps``, which nothing in the reference reads
-either) are absent: the parser rejects them rather than ignore them. ``--matcher`` is parsed and has no
+and ``bench.py``'s argv included). ``headless`` and ``no_viz3d`` are
+parsed for that reason; viz waits in the roadmap (``run_slam.run`` raises
+without ``--headless``). Global BA (``gba_*``), loop closure (``loop_*``)
+and the fused loop's rescue (``--fused_rescue_after``) are ported. Flags of
+the paths not yet ported (resume and save of the state, localisation-only
+mode, the keyframe thumbnails' ``--kf_thumb_hw``, and ``--fps``, which
+nothing in the reference reads either) are absent: the parser rejects them
+rather than ignore them. ``--matcher`` is parsed and has no
 effect: ``bf`` and ``flann`` are both the brute-force matcher, as in the
 reference. ``--device`` (the port's own) chooses
 where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
@@ -72,6 +72,14 @@ class SLAMConfig:
     local_ba_max_iters: int = 12
     ba_huber: float = 2.0                  # ba_utils.py:236
 
+    # global BA: off by default as in the reference; --gba_enable runs it
+    # at the gba_every keyframe milestone and after accepted loop closures
+    gba_every: int = 100
+    gba_max_points: Optional[int] = None
+    gba_max_iters: int = 30
+    gba_fix_first: int = 1
+    gba_enable: bool = False
+
     # hard-coded reference constants surfaced as config
     bootstrap_min_posdepth: float = 0.90   # main_revamped.py:358-362
     bootstrap_min_parallax_deg: float = 0.5
@@ -106,7 +114,31 @@ class SLAMConfig:
                                            # (0 => 4096)
     map_evict_age: int = 50                # fused map: evict landmarks unseen
                                            # this many frames near capacity
-    loop_closure: bool = False             # loop closure (not ported yet)
+    # loop closure + Sim(3) pose-graph optimisation (core/loop.py)
+    loop_closure: bool = False             # enable loop detection + Sim3 PGO
+    loop_min_sim: float = 0.70             # pooled-descriptor cosine gate
+    loop_gap_kfs: int = 15                 # skip the most recent N keyframes
+    loop_min_inliers: int = 25             # Sim3-RANSAC inlier acceptance gate
+    loop_ransac_thresh: float = 0.10       # RANSAC threshold as a fraction of
+                                           # the median scene depth
+    loop_max_scale: float = 16.0           # reject if s or 1/s exceeds this
+    loop_weight: float = 4.0               # loop-edge weight in the pose graph
+    loop_topk: int = 2                     # candidates to geometric-verify
+    loop_pgo_iters: int = 25               # LM iterations for the pose graph
+    loop_min_inlier_frac: float = 0.03     # inlier floor as a fraction of the
+                                           # current KF's valid keypoints
+    loop_confirm: int = 2                  # odometry-consistent verifications
+                                           # before a closure is applied
+    loop_confirm_window: int = 12          # a pending verification expires
+                                           # after this many keyframes
+    loop_confirm_strong: float = 0.35      # inlier coverage that applies a
+                                           # closure at once
+    fused_rescue_after: int = 24           # fused loop-closure mode: host
+                                           # global reloc after this many lost
+                                           # frames (0 disables)
+    loop_drift_frac_max: float = 0.6       # reject a closure whose correction
+                                           # exceeds this fraction of the
+                                           # cand->cur arc length (0 disables)
     prefetch: int = 1                      # threaded frame prefetch depth
     stage_all: bool = False                # fused mode: decode and upload
                                            # every frame before the loop
@@ -133,7 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
                                          "custom"], default=d.dataset)
     p.add_argument("--base_dir", default=d.base_dir)
     for flag in ("no_viz3d", "headless", "loop_closure", "fused",
-                 "stage_all"):
+                 "stage_all", "gba_enable"):
         p.add_argument(f"--{flag}", action="store_true")
     p.add_argument("--detector", choices=["orb", "sift", "akaze", "aliked"],
                    default=d.detector)
@@ -149,9 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false")
     p.add_argument("--tri_kf2", action="store_true")
     for f in dataclasses.fields(SLAMConfig):
-        if f.type in ("int", "float"):
-            p.add_argument(f"--{f.name}", type=int if f.type == "int"
-                           else float, default=getattr(d, f.name))
+        if f.type in ("int", "float", "Optional[int]"):
+            p.add_argument(f"--{f.name}", type=float if f.type == "float"
+                           else int, default=getattr(d, f.name))
     return p
 
 

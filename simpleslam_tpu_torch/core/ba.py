@@ -1,5 +1,6 @@
 """Bundle-adjustment orchestration over the Schur-LM solver (the
-counterpart of ``simpleslam_tpu/core/ba.py``; global BA waits).
+counterpart of ``simpleslam_tpu/core/ba.py``): two-view, pose-only, local
+(sliding window) and global BA.
 
 The problem is packed into padded edge arrays on the host (pads bucketed
 to powers of two), solved on the device by ``ops/ba.py``, and written back
@@ -176,3 +177,18 @@ def local_bundle_adjustment(world_map, K, kfs, center_kf_idx: int,
                     fix_kf_idx=list(range(0, first_opt)),
                     max_points=max_points, max_iters=max_iters,
                     info_tag=f"[Local BA @ KF {center_kf_idx}]")
+
+
+def global_bundle_adjustment(world_map, K, kfs,
+                             max_points: Optional[int] = None,
+                             max_iters: int = 30,
+                             fix_first: bool = True) -> bool:
+    """Full-map BA: every keyframe free but the first with ``fix_first``."""
+    n = len(kfs)
+    if n < 2:
+        return False
+    return _core_ba(world_map, K, kfs,
+                    opt_kf_idx=list(range(1 if fix_first else 0, n)),
+                    fix_kf_idx=[0] if fix_first else [],
+                    max_points=max_points, max_iters=max_iters,
+                    info_tag="[Global BA]")

@@ -29,9 +29,9 @@ re-orthonormalisation, the F/E fits and triangulation.
 Behaviour is the reference's fused step: same thresholds, trigger order,
 fallbacks, caps and RNG sites (``frame_key(base, frame_no, SITE_*)``), and
 the same divergences from the host driver (its module docstring lists
-them). Left out: ``force_branch`` (XLA cost accounting) and
-``apply_host_correction`` (loop closure's map rewrite), both queued in the
-roadmap.
+them). Left out: ``force_branch`` (XLA cost accounting), queued in the
+roadmap. ``apply_host_correction`` pushes a loop closure's host-side map
+rewrite back into the state.
 """
 from __future__ import annotations
 
@@ -338,10 +338,11 @@ def abstract_state(fc: FusedConfig, device=None,
 def sync_to_host(system, state: FusedState, fc: FusedConfig,
                  from_row: int = 0) -> dict:
     """One readback of the log, the map and the keyframe ring into the
-    host ``SLAMSystem``: poses from log row ``from_row`` on are appended,
-    landmarks reconcile by stable id (evicted ones are dropped: the
-    reference archives them for loop closure, which is not ported), new
-    landmarks arrive with their creation observations,
+    host ``SLAMSystem``: poses from log row ``from_row`` on are appended
+    (periodic syncs pass the previous sync's ``log_n``), landmarks
+    reconcile by stable id (evicted ones move to the map's archive when
+    they have observations, for loop closure, and are dropped otherwise),
+    new landmarks arrive with their creation observations,
     and keyframes created on the device become host ``Keyframe``s (real
     features while still in the ring, placeholders otherwise, with the
     tracked re-observations of the ring's keyframes). Returns the host
@@ -372,7 +373,10 @@ def sync_to_host(system, state: FusedState, fc: FusedConfig,
     dev_pids = {int(p) for p, a in zip(pid, alive) if a}
     for hp in list(wm.points.keys()):
         if hp not in dev_pids:
-            wm.points.pop(hp)
+            if wm.points[hp].observations:
+                wm.archive_point(hp)
+            else:
+                wm.points.pop(hp)
     grey = np.full((3,), 0.7, np.float32)
     for r in range(n_pts):
         if not alive[r]:
@@ -446,6 +450,45 @@ def sync_to_host(system, state: FusedState, fc: FusedConfig,
                     wm.poses[pi][:] = kf.pose
     system.last_kf_frame_no = int(host["last_kf_frame_no"])
     return host
+
+
+def apply_host_correction(state: FusedState, system, fc: FusedConfig,
+                          host: dict) -> FusedState:
+    """Push a host-side map rewrite (a loop closure:
+    ``core/loop.LoopCloser.close``) into the device state: landmark
+    positions by stable pid from the host map, the ring's keyframe poses,
+    ``Tcw`` and ``Tcw_prev`` from the corrected trajectory, and
+    ``ba_floor_kf`` set to the keyframe count (local BA waits until its
+    window has rolled past the keyframes of the old geometry). ``host``:
+    the sync's copies (:func:`sync_to_host`). Observations, descriptors
+    and ids are unchanged. Returns a new state; ``state`` is not
+    modified."""
+    wm = system.world_map
+    pos = np.array(host["positions"])
+    pid, alive = host["pid"], host["alive"]
+    for r in range(int(host["n_points"])):
+        if not alive[r]:
+            continue
+        hrow = wm._row.get(int(pid[r]))
+        if hrow is not None:
+            pos[r] = wm._positions[hrow]
+    kf_pose = np.array(host["kf_pose"])
+    kfc = int(host["kf_count"])
+    for kf in system.kfs:
+        if kfc - fc.kf_ring <= kf.idx < kfc:
+            slot = kf.idx % fc.kf_ring
+            if int(host["kf_frame_no"][slot]) == kf.frame_idx:
+                kf_pose[slot] = kf.pose
+    poses = wm.poses
+    dev = state.positions.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return dataclasses.replace(
+        state, positions=t(pos), kf_pose=t(kf_pose), Tcw=t(poses[-1]),
+        Tcw_prev=t(poses[-2] if len(poses) >= 2 else poses[-1]),
+        ba_floor_kf=state.kf_count.clone())
 
 
 # --------------------------------------------------------------------------- #

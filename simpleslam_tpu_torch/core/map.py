@@ -5,10 +5,12 @@ The single source of truth is a set of growable flat numpy arrays
 (positions / colours / alive mask / per-landmark descriptor ring), so the
 tracking step can snapshot the map as padded tensors in O(1) copies; the
 dict-of-``MapPoint`` API is a view on top (``Map.points[pid].position``).
-See the reference module for the behavioural contracts kept. The archive
-of evicted landmarks (loop closure's) and
-``fuse_closeby_duplicate_landmarks`` (multi-view triangulation) wait for
-the slices that read them; ``upsert_point`` serves the fused loop's sync."""
+See the reference module for the behavioural contracts kept. Landmarks
+evicted from the fused loop's device map move to ``archived`` (positions
+and (keyframe, keypoint) pairs, no descriptors), where loop closure finds
+them; ``upsert_point`` serves the fused loop's sync.
+``fuse_closeby_duplicate_landmarks`` (multi-view triangulation) waits for
+the slice that reads it."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -138,6 +140,12 @@ class Map:
         self.poses: List[np.ndarray] = []        # T_cw per *frame*
         self.keyframe_indices: List[int] = []
         self.points = _PointsView(self)
+        # landmarks evicted from the live (device-bounded) store, kept for
+        # loop closure: pid -> (position, [(kf_idx, kp_idx)], created_kf).
+        # Loop closure rewrites these positions too. Not counted by len()
+        # or point_ids(); bounded by archive_cap (see archive_point).
+        self.archived: Dict[int, Tuple[np.ndarray, list, int]] = {}
+        self.archive_cap = 200_000
         # bumped on every landmark mutation; lets device-side snapshot
         # caches (run_slam) invalidate precisely
         self.version = 0
@@ -200,6 +208,27 @@ class Map:
         self.version += 1
         del self._row[pid]
         self._obs.pop(pid, None)
+
+    def archive_point(self, pid: int) -> None:
+        """Move a live landmark into ``archived``. Descriptors are dropped
+        (loop closure reads only the (kf_idx, kp_idx) pairs and the
+        position). Past ``archive_cap`` landmarks the oldest 10% by
+        ``created_kf`` are pruned."""
+        row = self._row.get(pid)
+        if row is None:
+            return
+        obs_pairs = [(int(k), int(kp))
+                     for (k, kp, _d) in self._obs.get(pid, ())]
+        self.archived[pid] = (self._positions[row].copy(), obs_pairs,
+                              int(self._created_kf[row]))
+        self._remove_point(pid)
+        if len(self.archived) > self.archive_cap:
+            drop = max(1, self.archive_cap // 10)
+            oldest = sorted(self.archived.items(),
+                            key=lambda kv: kv[1][2])[:drop]
+            for k, _v in oldest:
+                del self.archived[k]
+            self.version += 1
 
     def upsert_point(self, pid: int, position, colour=None,
                      keyframe_idx: int = -1) -> bool:

@@ -306,8 +306,8 @@ class ScenePairPool:
         for fam in families:
             if fam != "corridor":
                 raise NotImplementedError(
-                    f"scene family {fam!r} is not ported (BoxScene and "
-                    f"PhotoScene wait with ROADMAP A.2); use 'corridor'")
+                    f"scene family {fam!r} is not ported in the training "
+                    f"pool (it waits for ROADMAP A.7); use 'corridor'")
         H, W = hw
         Hr, Wr = render_hw if render_hw is not None else (H, W)
         if Hr < H or Wr < W:

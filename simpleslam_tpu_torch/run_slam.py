@@ -7,11 +7,13 @@ dataset read by ``data/dataloader.py``.
 Delayed two-view bootstrap -> frame-to-map PnP tracking (widened-window
 retry, keyframe relocalisation, global relocalisation, 2D-2D essential
 fallback) -> keyframe policy -> KF-pair triangulation -> local bundle
-adjustment. Tensors live on the system's device; the map and the decisions
-live on the host. Not ported yet (they raise): lens undistortion, loop
-closure (also in the fused loop), global BA, resumed and saved state,
-localisation-only mode and the live windows (``run`` needs
-``--headless``).
+adjustment -> loop closure (``--loop_closure``: on each new keyframe, or in
+the fused loop at periodic syncs, with the host-assisted rescue) -> global
+BA (``--gba_enable``: at the ``gba_every`` keyframe milestone and after an
+accepted closure). Tensors live on the system's device; the map and the
+decisions live on the host. Not ported yet (they raise): lens
+undistortion, resumed and saved state, localisation-only mode and the live
+windows (``run`` needs ``--headless``).
 
 Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
           --base_dir <dir> --headless --no_viz3d [--fused] [--device cpu]
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,12 +30,13 @@ import torch
 
 from simpleslam_tpu_torch.config import SLAMConfig
 from simpleslam_tpu_torch.core import frontend
-from simpleslam_tpu_torch.core.ba import local_bundle_adjustment
+from simpleslam_tpu_torch.core.ba import (global_bundle_adjustment,
+                                          local_bundle_adjustment)
 from simpleslam_tpu_torch.core.bootstrap import (InitParams,
                                                  bootstrap_two_view_map)
 from simpleslam_tpu_torch.core.keyframe import (Keyframe, make_thumb,
                                                 select_keyframe)
-from simpleslam_tpu_torch.core.loop import place_vector
+from simpleslam_tpu_torch.core.loop import LoopCloser, place_vector
 from simpleslam_tpu_torch.core.map import Map
 from simpleslam_tpu_torch.core.triangulate import \
     triangulate_between_kfs_2view
@@ -46,8 +49,9 @@ from simpleslam_tpu_torch.utils.profiling import StageTimer
 from simpleslam_tpu_torch.viz import Trajectory2D
 from simpleslam_tpu_torch.utils.rng import (SITE_ESS, SITE_GRELOC,
                                             SITE_KF_MATCH, SITE_KF_MATCH2,
-                                            SITE_PNP, SITE_PREV_MATCH,
-                                            SITE_RELOC, TorchKey, frame_key)
+                                            SITE_LOOP, SITE_PNP,
+                                            SITE_PREV_MATCH, SITE_RELOC,
+                                            TorchKey, frame_key)
 
 logger = logging.getLogger("main")
 
@@ -83,9 +87,11 @@ class SLAMResult:
     tracking_lost_count: int = 0
     map_compactions: int = 0    # fused-mode eviction passes
     kf_frames: List[int] = field(default_factory=list)  # KF source frame ids
-    loop_closures: int = 0      # accepted loop closures (not ported: 0)
+    loop_closures: int = 0      # accepted loop closures (--loop_closure)
+    # the accepted closures (core/loop.LoopClosure; cur_kf / cand_kf are
+    # keyframe sequence ids, scale the measured Sim3 drift)
     closure_events: List[object] = field(default_factory=list)
-    gba_runs: int = 0           # global-BA solves (not ported: 0)
+    gba_runs: int = 0           # completed global-BA solves (--gba_enable)
 
 
 class SLAMSystem:
@@ -97,8 +103,10 @@ class SLAMSystem:
     (aliked_state_dict, lightglue_state_dict); otherwise the trained tree
     (``models/pipeline.py``).
 
-    Counters: ``tracking_lost_count`` (frames not posed) and
-    ``local_ba_solves`` (local BAs that ran a solve).
+    Counters: ``tracking_lost_count`` (frames not posed),
+    ``local_ba_solves`` (local BAs that ran a solve) and ``gba_runs``
+    (global BAs that ran a solve). ``loop_closer``: the run's
+    ``LoopCloser``, made at the first keyframe with ``cfg.loop_closure``.
     """
 
     def __init__(self, cfg: SLAMConfig, K: np.ndarray,
@@ -125,6 +133,9 @@ class SLAMSystem:
         self.local_ba_solves = 0
         self.frame_ids: List[int] = []
         self._snap_cache = None
+        self.loop_closer: Optional[LoopCloser] = None
+        self.gba_runs = 0
+        self._last_gba_kf_count = -1   # the gba_every milestone's dedup
         self._lost_streak = 0
         self._vel_reset = False
         self._place_vecs: List[np.ndarray] = []
@@ -461,7 +472,54 @@ class SLAMSystem:
             except Exception:
                 # BA must never kill tracking (the reference's rule)
                 logger.exception("[Local BA] failed; tracking continues")
+        if cfg.loop_closure and len(self.kfs) >= 2:
+            with self.timer.stage("loop"):
+                lc = self.closer().on_new_keyframe(
+                    self.kfs, self.world_map, self.img_hw,
+                    self._site_key(frame_idx, SITE_LOOP))
+            if lc is not None and cfg.gba_enable:
+                # polish the pose-graph rewrite with a full metric BA
+                self.run_global_ba()
         return len(new_ids)
+
+    def closer(self) -> LoopCloser:
+        """The run's loop closer, made on first use."""
+        if self.loop_closer is None:
+            self.loop_closer = LoopCloser(self.cfg, self.K, self.matcher,
+                                          timer=self.timer)
+        return self.loop_closer
+
+    def run_global_ba(self) -> bool:
+        """Full-map Schur-LM BA (``--gba_enable``). It writes back keyframe
+        poses only, so each trailing non-keyframe pose keeps its relative
+        pose to the last keyframe: B_post = B_pre @ A_pre^-1 @ A_post."""
+        if len(self.kfs) < 2:
+            return False
+        cfg = self.cfg
+        ki = self.world_map.keyframe_indices
+        anchor = ki[-1] if ki else None
+        T_pre = (np.array(self.world_map.poses[anchor])
+                 if anchor is not None and anchor < len(self.world_map.poses)
+                 else None)
+        try:
+            with self.timer.stage("gba"):
+                ok = global_bundle_adjustment(
+                    self.world_map, self.K, self.kfs,
+                    max_points=cfg.gba_max_points,
+                    max_iters=cfg.gba_max_iters,
+                    fix_first=bool(cfg.gba_fix_first))
+        except Exception:
+            # BA must never kill tracking (the reference's rule)
+            logger.exception("[Global BA] failed; tracking continues")
+            return False
+        if ok:
+            self.gba_runs += 1
+            if T_pre is not None:
+                corr = np.linalg.inv(T_pre) @ np.asarray(
+                    self.world_map.poses[anchor])
+                for i in range(anchor + 1, len(self.world_map.poses)):
+                    self.world_map.poses[i] = self.world_map.poses[i] @ corr
+        return ok
 
     # ------------------------------------------------------------ main step
     def process_frame(self, frame_idx: int, img,
@@ -490,22 +548,190 @@ class SLAMSystem:
             self._track(frame_idx, feats, prev_feats, matches_prev)
         with self.timer.stage("keyframe"):
             self._maybe_keyframe(frame_idx, img, feats)
+        # the global-BA milestone, keyed on the keyframe count with a dedup
+        # so frames that add no keyframe never re-solve an unchanged map
+        if self.cfg.gba_every and self.cfg.gba_enable and self.initialised:
+            kfc = len(self.kfs)
+            if (kfc > 0 and kfc % self.cfg.gba_every == 0
+                    and kfc != self._last_gba_kf_count):
+                self.run_global_ba()
+                self._last_gba_kf_count = kfc
         return feats
+
+
+def _host_assist_reloc(cfg: SLAMConfig, system: SLAMSystem, state, fc,
+                       host: dict):
+    """The fused loop's rescue after sustained loss, at a loop-closure
+    sync: the device's global relocalisation sees only its keyframe ring,
+    the host every keyframe and the landmark archive. Relocalise the newest
+    synced keyframe that has features against the place-vector candidates
+    over all keyframes (PnP on their landmarks, a 2x inlier gate), then put
+    the pose and the matched region's landmarks (archived ones included,
+    with descriptors from their observing keyframes) into free device map
+    rows.
+
+    The new device state is built before the host map is touched, so a
+    rescue that raises leaves both as they were. Returns the new
+    FusedState, or None if no rescue happened."""
+    fl = host["log_flags"]
+    n_log = int(host["log_n"])
+    after = int(cfg.fused_rescue_after)
+    if after <= 0 or n_log == 0:
+        return None
+    streak = 0
+    for i in range(n_log - 1, -1, -1):
+        if fl[i, 0] > 0.5:
+            break
+        streak += 1
+    if streak < after:
+        return None
+    kf_q = next((kf for kf in reversed(system.kfs)
+                 if int(kf.feats.valid.sum()) > 0), None)
+    if kf_q is None or system.loop_closer is None:
+        return None
+    wm, lc, dev = system.world_map, system.loop_closer, system.device
+    while len(system._place_vecs) < len(system.kfs):
+        kf = system.kfs[len(system._place_vecs)]
+        system._place_vecs.append(
+            place_vector(kf.feats, system.img_hw, cfg.loop_grid))
+    vec = place_vector(kf_q.feats, system.img_hw, cfg.loop_grid)
+    sims = np.stack(system._place_vecs) @ vec
+    order = [c for c in np.argsort(-sims)
+             if system.kfs[int(c)].idx != kf_q.idx]
+    kpts_q = kf_q.feats.kpts.cpu().numpy()
+    for cand in order[: max(4, int(cfg.global_reloc_topk))]:
+        if sims[cand] < cfg.global_reloc_min_sim:
+            break
+        kf_c = system.kfs[int(cand)]
+        kp2pid = lc._kp2pid(wm, kf_c.idx)
+        if len(kp2pid) < cfg.pnp_min_inliers:
+            continue                    # a dead-zone keyframe maps nothing
+        m = frontend.feature_matcher(cfg, kf_c.feats, kf_q.feats,
+                                     system.matcher)
+        pts3d, pts2d = [], []
+        for a, b, v in zip(m.idx0.cpu().numpy(), m.idx1.cpu().numpy(),
+                           m.valid.cpu().numpy()):
+            pid = kp2pid.get(int(a))
+            if v and pid is not None:
+                pts3d.append(lc._position_of(wm, pid).astype(np.float32))
+                pts2d.append(kpts_q[int(b)])
+        if len(pts3d) < cfg.pnp_min_inliers:
+            continue
+        M = len(pts3d)
+        Mp = 1 << (max(M, 8) - 1).bit_length()
+        P3 = np.zeros((Mp, 3), np.float32)
+        P2 = np.zeros((Mp, 2), np.float32)
+        val = np.zeros(Mp, bool)
+        P3[:M], P2[:M], val[:M] = pts3d, pts2d, True
+        T_r, _inl, n_inl, ok = pnp.solve_pnp_ransac(
+            system._site_key(kf_q.frame_idx, SITE_GRELOC), system._t(P3),
+            system._t(P2), torch.as_tensor(val, device=dev), system._K_t,
+            cfg.ransac_thresh, Tcw_init=system._t(kf_c.pose),
+            n_hyp=cfg.ransac_hypotheses)
+        # a real revisit of a mapped region clears a 2x gate easily; a
+        # junk-drift keyframe can pass a marginal PnP
+        n_inl = int(n_inl)
+        if not bool(ok) or n_inl < 2 * cfg.pnp_min_inliers:
+            continue
+        new, restore, n_new = _rescue_rows(system, state, fc, host,
+                                           int(cand))
+        T_r32 = T_r.to(torch.float32)
+        new_state = replace(state, Tcw=T_r32.clone(),
+                            Tcw_prev=T_r32.clone(),     # zero velocity
+                            lost_streak=torch.zeros_like(state.lost_streak),
+                            **new)
+        # the host map changes only now that the device state is whole
+        grey = np.full((3,), 0.7, np.float32)
+        for pid, pos, created, obs in restore:
+            del wm.archived[pid]
+            if wm.upsert_point(pid, pos, colour=grey, keyframe_idx=created):
+                mp = wm.points[pid]
+                for (k, kp, d) in obs:
+                    mp.add_observation(k, kp, d)
+        if n_new:
+            wm.version += 1
+        logger.info(
+            "[RESCUE] host-assisted reloc after %d lost frames: KF %d "
+            "recovered via KF %d (sim %.3f, %d/%d inliers), %d landmarks "
+            "re-injected (%d archived remain)", streak, kf_q.idx, kf_c.idx,
+            float(sims[cand]), n_inl, M, n_new, len(wm.archived))
+        return new_state
+    return None
+
+
+def _rescue_rows(system: SLAMSystem, state, fc, host: dict, cand: int):
+    """The rescue's landmarks: those the keyframes ``cand - 2 .. cand + 2``
+    observe that are not alive on the device (archived ones included),
+    each with a descriptor of an observing keyframe, in free device rows
+    (at most 2048). Returns (the state's new fields, what the host map must
+    restore: (pid, position, created_kf, [(kf, kp, desc)]) per archived
+    landmark, the number of rows filled); nothing is modified."""
+    wm, lc, dev = system.world_map, system.loop_closer, system.device
+    n_points = int(host["n_points"])
+    dev_alive = {int(p) for p, a in zip(host["pid"][:n_points],
+                                        host["alive"][:n_points]) if a}
+    inject = {}
+    for nb in range(max(0, cand - 2), min(len(system.kfs), cand + 3)):
+        kf_n = system.kfs[nb]
+        if int(kf_n.feats.valid.sum()) == 0:
+            continue
+        desc_n = kf_n.feats.desc.cpu().numpy()
+        valid_n = kf_n.feats.valid.cpu().numpy()
+        for kp, pid in lc._kp2pid(wm, kf_n.idx).items():
+            if pid in dev_alive or pid in inject or kp >= len(desc_n) \
+                    or not valid_n[kp]:
+                continue
+            inject[pid] = (lc._position_of(wm, pid), desc_n[kp])
+    items = list(inject.items())[: min(fc.map_capacity - n_points, 2048)]
+    if not items:
+        return {}, [], 0
+    n_i = len(items)
+    rows = torch.arange(n_points, n_points + n_i, device=dev)
+
+    def put(x, v):
+        return x.index_copy(0, rows, v.to(x.dtype).expand(n_i, *x.shape[1:]))
+
+    ring = state.desc_ring.index_select(0, rows)
+    ring[:, 0] = torch.as_tensor(np.stack([d for _, (_p, d) in items]),
+                                 device=dev).to(ring.dtype)
+    one = torch.ones((), device=dev)
+    new = dict(
+        positions=put(state.positions, torch.as_tensor(
+            np.stack([p for _, (p, _d) in items]).astype(np.float32),
+            device=dev)),
+        alive=put(state.alive, one), n_desc=put(state.n_desc, one),
+        desc_ring=state.desc_ring.index_copy(0, rows, ring),
+        obs_kf=put(state.obs_kf, -one), obs_n=put(state.obs_n, 0 * one),
+        pid=put(state.pid, torch.as_tensor([p for p, _ in items],
+                                           device=dev)),
+        last_seen=put(state.last_seen, state.frame_no * one),
+        n_points=torch.full((), n_points + n_i, dtype=state.n_points.dtype,
+                            device=dev))
+    restore, kf_desc = [], {}
+    for pid, (pos, _d) in items:
+        if pid not in wm.archived:
+            continue
+        _apos, obs_pairs, created = wm.archived[pid]
+        obs = []
+        for (k, kp) in obs_pairs:
+            if k >= len(system.kfs):
+                continue
+            if k not in kf_desc:
+                kf_desc[k] = system.kfs[k].feats.desc.cpu().numpy()
+            if kp < len(kf_desc[k]):
+                obs.append((k, kp, kf_desc[k][kp]))
+        restore.append((pid, np.asarray(pos, np.float64), created, obs))
+    return new, restore, n_i
 
 
 def build_fused_loop(cfg: SLAMConfig, system: SLAMSystem,
                      prev_feats: Features, n_frames: int):
     """The fused loop's parts for a sequence of ``n_frames`` frames after
     ``system`` bootstrapped: (FusedConfig, step, post-bootstrap state).
-    ``prev_feats``: the last host frame's features. Loop closure
-    (``cfg.loop_closure``) is not ported: it raises."""
+    ``prev_feats``: the last host frame's features."""
     from simpleslam_tpu_torch.core.fused import (build_fused_step,
                                                  make_fused_config,
                                                  state_from_host)
-    if cfg.loop_closure:
-        raise NotImplementedError(
-            "loop closure in the fused loop (apply_host_correction, "
-            "_host_assist_reloc) is not ported yet")
     fc = make_fused_config(cfg, system.img_hw,
                            n_kp=int(prev_feats.kpts.shape[0]),
                            desc_dim=int(prev_feats.desc.shape[1]),
@@ -528,13 +754,24 @@ def run_fused_loop(cfg: SLAMConfig, system: SLAMSystem, frames: Sequence,
     ``built``: :func:`build_fused_loop`'s result to run instead of building
     one (its state is updated in place).
 
+    With ``cfg.loop_closure`` every ``fused_sync_every or 32`` frames is a
+    real sync instead (the keyframes' features must reach the host before
+    the ring overwrites them): ``LoopCloser.scan`` over the new keyframes,
+    then on a closure global BA (``--gba_enable``) and the rewrite pushed
+    to the device (``apply_host_correction``), else the host-assisted
+    rescue (``_host_assist_reloc``; a rescue that raises is logged and the
+    loop goes on unrescued). A last scan follows the final sync.
+
     Returns (final state, step); ``step.host_reads`` counts the step's
-    branch reads. Loop closure (``cfg.loop_closure``) is not ported: it
-    raises."""
-    from simpleslam_tpu_torch.core.fused import sync_to_host
+    branch reads."""
+    from simpleslam_tpu_torch.core.fused import (apply_host_correction,
+                                                 sync_to_host)
     fc, step, state = built or build_fused_loop(
         cfg, system, prev_feats, start_idx + len(frames))
     sync_every = int(cfg.fused_sync_every)
+    loop_on = bool(cfg.loop_closure)
+    lc_every = sync_every or 32
+    log_consumed = 0
     t_warm = None
     n_dispatched = 0
     with system.timer.stage("fused_loop"):
@@ -545,18 +782,54 @@ def run_fused_loop(cfg: SLAMConfig, system: SLAMSystem, frames: Sequence,
             if n_dispatched == 10:
                 state.Tcw.cpu()
                 t_warm = time.perf_counter()
-            if sync_every and n_dispatched % sync_every == 0:
+            if loop_on and n_dispatched % lc_every == 0:
+                with system.timer.stage("fused_sync"):
+                    host = sync_to_host(system, state, fc,
+                                        from_row=log_consumed)
+                    log_consumed = int(host["log_n"])
+                with system.timer.stage("loop"):
+                    closed = system.closer().scan(
+                        system.kfs, system.world_map, system.img_hw,
+                        system._site_key(log_consumed, SITE_LOOP))
+                    if closed is not None:
+                        if cfg.gba_enable:
+                            system.run_global_ba()
+                        state = apply_host_correction(state, system, fc,
+                                                      host)
+                    else:
+                        # best effort: the device loop may still recover on
+                        # its own (the reference's rule)
+                        try:
+                            rescued = _host_assist_reloc(cfg, system, state,
+                                                         fc, host)
+                        except Exception:
+                            logger.exception("[RESCUE] host-assisted reloc "
+                                             "failed; continuing unrescued")
+                            rescued = None
+                        if rescued is not None:
+                            state = rescued
+            elif sync_every and n_dispatched % sync_every == 0:
                 with system.timer.stage("fused_sync"):
                     state.Tcw.cpu()           # observes every step so far
     with system.timer.stage("fused_sync"):
-        host = sync_to_host(system, state, fc)
+        host = sync_to_host(system, state, fc, from_row=log_consumed)
     if t_warm is not None and n_dispatched > 30:
         logger.info("[FUSED] sustained %.2f frames/s over %d post-warm-up "
                     "frames (%s syncs)",
                     (n_dispatched - 10) / (time.perf_counter() - t_warm),
-                    n_dispatched - 10, "periodic" if sync_every else "no")
+                    n_dispatched - 10,
+                    "periodic" if (loop_on or sync_every) else "no")
     system.kf_count_override = int(host["kf_count"])
     system._key = state.key
+    if loop_on:
+        # keyframes after the last periodic sync still get their chance;
+        # the rewrite lands in the host map the results come from
+        with system.timer.stage("loop"):
+            closed = system.closer().scan(
+                system.kfs, system.world_map, system.img_hw,
+                system._site_key(int(host["log_n"]) + 1, SITE_LOOP))
+            if closed is not None and cfg.gba_enable:
+                system.run_global_ba()
     return state, step
 
 
@@ -587,20 +860,19 @@ def _run_fused_over(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem,
 # the paths that ``run`` does not take yet, each with its roadmap item
 _NOT_PORTED = (
     ("headless", False, "live windows (the non-headless run) wait for viz, "
-                        "ROADMAP A.13; pass --headless"),
-    ("loop_closure", True, "loop closure waits for ROADMAP A.7"),
-    ("gba_enable", True, "global BA waits for ROADMAP A.8"),
-    ("resume", True, "resuming a saved state waits for ROADMAP A.13"),
-    ("save_state", True, "saving the state waits for ROADMAP A.13"),
-    ("localize_only", True, "localisation-only mode waits for ROADMAP A.13"),
+                        "ROADMAP A.11; pass --headless"),
+    ("resume", True, "resuming a saved state waits for ROADMAP A.4"),
+    ("save_state", True, "saving the state waits for ROADMAP A.4"),
+    ("localize_only", True, "localisation-only mode waits for ROADMAP A.4"),
 )
 
 
-def run(cfg: SLAMConfig, device=None) -> SLAMResult:
+def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     """The CLI's run over ``cfg.dataset`` under ``cfg.base_dir``: the host
     pipeline frame by frame, or with ``cfg.fused`` the host bootstrap and
     then the fused device loop. ``device``: None is the GPU (raises without
-    one), "cpu" the CPU. Logs the ATE line (against the dataset's ground
+    one), "cpu" the CPU. ``key``: the randomness source (``utils/rng.py``;
+    default a ``TorchKey`` of ``cfg.seed``). Logs the ATE line (against the dataset's ground
     truth), ``done: ...`` and the per-stage breakdown, and tries to save
     ``trajectory_<dataset>.png`` (needs matplotlib; a warning without)."""
     for name, bad, why in _NOT_PORTED:
@@ -620,7 +892,7 @@ def run(cfg: SLAMConfig, device=None) -> SLAMResult:
 
     img0 = seq.frame(0)
     system = SLAMSystem(cfg, seq.K, seq.D, img_hw=img0.shape[:2],
-                        device=device)
+                        device=device, key=key)
     traj2d = Trajectory2D(gt44, dataset=cfg.dataset)
 
     def push_poses(frame_idx):
@@ -668,7 +940,12 @@ def run(cfg: SLAMConfig, device=None) -> SLAMResult:
         map_compactions=int(getattr(system, "_fused_compactions", 0)),
         kf_frames=[system.frame_ids[i]
                    for i in system.world_map.keyframe_indices
-                   if i < len(system.frame_ids)])
+                   if i < len(system.frame_ids)],
+        loop_closures=(len(system.loop_closer.closures)
+                       if system.loop_closer is not None else 0),
+        closure_events=(list(system.loop_closer.closures)
+                        if system.loop_closer is not None else []),
+        gba_runs=system.gba_runs)
 
     out_png = f"trajectory_{cfg.dataset}.png"
     try:
@@ -690,6 +967,11 @@ def run(cfg: SLAMConfig, device=None) -> SLAMResult:
     logger.info("done: %d frames, %.2f FPS, %d KFs, %d landmarks, %d lost",
                 res.n_frames, res.fps, res.n_keyframes, res.n_landmarks,
                 res.tracking_lost_count)
+    if cfg.loop_closure:
+        logger.info("loop closures accepted: %d; archived landmarks: %d "
+                    "(cap %d)", res.loop_closures,
+                    len(system.world_map.archived),
+                    system.world_map.archive_cap)
     # 'keyframe' wholly contains 'triangulate' and 'local_ba'; 'host-gap'
     # is loop time that no stage accounts for
     accounted = sum(t for nm, t in system.timer.totals.items()

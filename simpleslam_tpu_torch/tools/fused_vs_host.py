@@ -17,7 +17,13 @@ RANSAC seeds, with each fused run compared to the host run of its seed:
 
 With ``--bootstrap`` it prints the bootstrap's two-view attempts instead
 (:func:`bootstrap_probe`), with the device's RANSAC draws and with the
-CPU's.
+CPU's. With ``--lap`` it renders the reference's loop-closure lap (130
+box-field frames at 180x410 on a rounded square, scene seed 5) and prints,
+per RANSAC seed and draw source (the device's and the CPU's), the host and
+``--fused`` runs of ``LAP_ARGV``: lost frames, closures, ATE and
+:func:`compare_closures`:
+
+    python -m simpleslam_tpu_torch.tools.fused_vs_host --lap --seeds 0,1,2,3
 
 The variants (``VARIANTS``) separate what the fused loop's ATE at the
 CLI's defaults depends on: the BA window's point slice, the keypoint
@@ -71,6 +77,36 @@ def compare_runs(host, fused) -> dict:
         ate_gap=float(abs(fused.ate - host.ate)
                       / (0.5 * max(host.ate, 0.05))),
         landmarks=fused.n_landmarks / host.n_landmarks)
+
+
+def compare_closures(host, fused) -> dict:
+    """Two runs with one accepted closure each (``SLAMResult``s of either
+    package): how far apart their candidate and current keyframes' frames
+    are, the ratio of their measured scales, the frames both posed, and the
+    median and largest distance of the Sim(3)-aligned fused centres from
+    the host's (``tests/test_loop.py``'s host-against-fused statistics)."""
+    ch, cf = host.closure_events[0], fused.closure_events[0]
+    c_h, c_f = _centres(host), _centres(fused)
+    common = sorted(set(c_h) & set(c_f))
+    A = np.stack([c_f[f] for f in common])
+    B = np.stack([c_h[f] for f in common])
+    s, R, t = umeyama_sim3(A, B)
+    d = np.linalg.norm(s * A @ R.T + t - B, axis=1)
+    return {"cand_frames": abs(host.kf_frames[ch.cand_kf]
+                               - fused.kf_frames[cf.cand_kf]),
+            "cur_frames": abs(host.kf_frames[ch.cur_kf]
+                              - fused.kf_frames[cf.cur_kf]),
+            "scale_ratio": ch.scale / cf.scale, "common": len(common),
+            "median": float(np.median(d)), "max": float(d.max())}
+
+
+# the reference's loop-closure lap (tests/test_loop.py:477-545): its
+# sequence and argv
+LAP_SEQUENCE = dict(n_frames=130, seed=5, hw=(180, 410), scene="boxes",
+                    trajectory="square")
+LAP_ARGV = ["--dataset", "kitti", "--headless", "--no_viz3d",
+            "--max_features", "512", "--map_capacity", "4096",
+            "--loop_closure", "--loop_confirm", "1"]
 
 
 # (name, extra flags) of the fused runs; each seed also runs the host
@@ -154,6 +190,53 @@ def _summary(res) -> dict:
                 map_points=res.n_landmarks, frames_per_s=res.fps)
 
 
+def closure_records(res) -> list:
+    """A run's accepted closures, with their keyframes' frames."""
+    return [dict(cur_kf=e.cur_kf, cand_kf=e.cand_kf,
+                 cur_frame=res.kf_frames[e.cur_kf],
+                 cand_frame=res.kf_frames[e.cand_kf], scale=e.scale,
+                 n_inliers=e.n_inliers, similarity=e.similarity,
+                 cost_before=e.cost_before, cost_after=e.cost_after,
+                 max_pose_delta=e.max_pose_delta)
+            for e in res.closure_events]
+
+
+def _lap_runs(a, seeds, out) -> None:
+    """``--lap``: host and fused runs of LAP_ARGV per seed and draw
+    source."""
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.tools import synth
+    from simpleslam_tpu_torch.utils.rng import TorchKey
+    with tempfile.TemporaryDirectory() as tmp:
+        base = synth.generate_kitti_sequence(
+            os.path.join(tmp, "lap"), device=a.device, **LAP_SEQUENCE)
+        os.chdir(tmp)
+        for seed in seeds:
+            for host_draws in (False, True):
+                runs = {}
+                for mode in ("host", "fused"):
+                    cfg = parse_config(["--base_dir", base] + LAP_ARGV + (
+                        ["--fused"] if mode == "fused" else [])
+                        + ["--seed", str(seed)])
+                    key = HostDrawKey(TorchKey(seed)) if host_draws else None
+                    t0 = time.time()
+                    runs[mode] = res = run_slam.run(cfg, device=a.device,
+                                                    key=key)
+                    _emit(out, dict(run="lap", mode=mode, seed=seed,
+                                    device=a.device or "cuda",
+                                    host_draws=host_draws,
+                                    run_s=time.time() - t0,
+                                    closures=closure_records(res),
+                                    frames_posed=len(res.poses_cw),
+                                    **_summary(res)))
+                if all(r.loop_closures == 1 for r in runs.values()):
+                    _emit(out, dict(run="lap_host_vs_fused", seed=seed,
+                                    host_draws=host_draws,
+                                    **compare_closures(runs["host"],
+                                                       runs["fused"])))
+
+
 def main(argv=None) -> int:
     from simpleslam_tpu_torch.tools import synth
     p = argparse.ArgumentParser("fused_vs_host")
@@ -171,6 +254,10 @@ def main(argv=None) -> int:
                    help="only the bootstrap's two-view attempts of the ORB "
                         "and learned commands per seed, with the device's "
                         "and the CPU's RANSAC draws")
+    p.add_argument("--lap", action="store_true",
+                   help="the loop-closure lap's host and fused runs per "
+                        "seed instead (LAP_ARGV), with the device's and "
+                        "the CPU's RANSAC draws")
     a = p.parse_args(argv)
     chosen = [v for v in VARIANTS if v[0] in a.variants.split(",")]
     seeds = [int(s) for s in a.seeds.split(",")]
@@ -178,7 +265,10 @@ def main(argv=None) -> int:
     cwd = os.getcwd()
     out = open(a.out, "a") if a.out else None
     try:
-        _runs(a, chosen, seeds, variant_seeds, out)
+        if a.lap:
+            _lap_runs(a, seeds, out)
+        else:
+            _runs(a, chosen, seeds, variant_seeds, out)
     finally:
         os.chdir(cwd)
         if out:

@@ -1,12 +1,14 @@
-"""Synthetic corridor sequences (the counterpart of the part of
-``simpleslam_tpu/tools/synth.py`` that ``bench.py`` uses).
+"""Synthetic sequences (the counterpart of the corridor and box scenes of
+``simpleslam_tpu/tools/synth.py``).
 
-A raycast textured corridor (ground plane, two walls, a high ceiling and a
-far wall, all static world geometry) rendered along a smooth KITTI-like
-trajectory (forward motion with gentle yaw). The texture is a fixed sum of
-random 3-D sinusoids evaluated at the ray-plane hit points, anti-aliased
-per pixel, so appearance is consistent across views: real parallax and
-stable descriptors.
+Two raycast scene families: a textured corridor (ground plane, two walls,
+a high ceiling and a far wall, all static world geometry) and a box field
+(a textured ground plane and axis-aligned boxes under a flat sky, the
+reference's held-out family and its loop-closure fixture), rendered along
+a smooth KITTI-like trajectory or a closed lap. The texture is a fixed sum
+of random 3-D sinusoids (the boxes add hard-edged square waves) evaluated
+at the hit points, anti-aliased per pixel, so appearance is consistent
+across views: real parallax and stable descriptors.
 
 Each frame is one torch expression on the scene's device: the ray
 geometry in float64, the (H, W, n_waves) texture in float32, as the
@@ -22,8 +24,8 @@ and ``kitti/05/calib.txt`` for the ``crop`` camera) with
     python -m simpleslam_tpu_torch.tools.synth --out D --frames 40 \
         [--device cpu]
 
-Not ported yet: ``BoxScene`` and ``PhotoScene`` (the ``--scene`` choices
-are the families of ``SCENE_FAMILIES``).
+Not ported yet: ``PhotoScene`` (the ``--scene`` choices are the families
+of ``SCENE_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -220,7 +222,140 @@ class CorridorScene:
         return out, hit, t_best
 
 
-SCENE_FAMILIES = {"corridor": CorridorScene}
+class BoxScene:
+    """Textured ground plane + scattered axis-aligned boxes under an
+    untextured sky: finite objects, occlusion boundaries and featureless
+    regions, with sinusoids mixed with square waves for texture. Same
+    raycast API as :class:`CorridorScene`. ``path``: an explicit camera
+    path (a closed lap); the box field then covers its bounding region and
+    keeps boxes off the path."""
+
+    def __init__(self, seed: int = 0, ground_y: float = 1.6,
+                 n_boxes: int = 48, hw: Tuple[int, int] = DEFAULT_HW,
+                 K: np.ndarray = DEFAULT_K, span_z: float = 250.0,
+                 path: np.ndarray = None, device=None):
+        self.device = resolve_device(device)
+        rng = np.random.default_rng(seed + 77000)
+        self.tex = ProceduralTexture(seed + 50000, device=self.device)
+        d = rng.normal(size=(12, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        sq_k = (d * rng.uniform(0.5, 4.0, 12)[:, None] * 2 * np.pi
+                ).astype(np.float32)
+        self._sq_k = torch.as_tensor(sq_k, device=self.device)
+        self._sq_knorm = torch.as_tensor(np.linalg.norm(sq_k, axis=1),
+                                         device=self.device)
+        self._sq_phase = torch.as_tensor(
+            rng.uniform(0, 2 * np.pi, 12).astype(np.float32),
+            device=self.device)
+        self.ground_y = ground_y
+        self.hw = hw
+        self.K = np.asarray(K, np.float64)
+        # the box field, drawn as the reference draws it: boxes that would
+        # cut a radius-2.5 tube around the camera path are redrawn
+        boxes = []
+        n_target = max(n_boxes, 30)
+        if path is not None:
+            path = np.asarray(path, np.float64)
+            x_lo, x_hi = path[:, 0].min() - 25.0, path[:, 0].max() + 25.0
+            z_lo, z_hi = path[:, 2].min() - 10.0, path[:, 2].max() + 25.0
+        while len(boxes) < n_target:
+            sx, sy, sz = rng.uniform(1.0, 6.0, 3)
+            cy = rng.uniform(-18.0, ground_y)
+            if path is not None:
+                cx = rng.uniform(x_lo, x_hi)
+                cz = rng.uniform(z_lo, z_hi)
+                half_diag = 0.5 * float(np.linalg.norm([sx, sy, sz]))
+                d_path = np.min(np.linalg.norm(
+                    path[:, [0, 2]] - np.array([cx, cz]), axis=1))
+                if d_path < 2.5 + half_diag and cy > -2.5 - sy / 2:
+                    continue
+            else:
+                cx = rng.uniform(-25.0, 25.0)
+                cz = rng.uniform(4.0, max(span_z, 250.0))
+                if abs(cx) < 2.5 + sx / 2 and abs(cy) < 2.5 + sy / 2:
+                    continue
+            boxes.append((np.array([cx - sx / 2, cy - sy / 2, cz - sz / 2]),
+                          np.array([cx + sx / 2, cy + sy / 2, cz + sz / 2])))
+        self._boxes = [(torch.as_tensor(lo, device=self.device),
+                        torch.as_tensor(hi, device=self.device))
+                       for lo, hi in boxes]
+        H, W = hw
+        u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                           np.arange(H, dtype=np.float64))
+        rays = np.stack([u, v, np.ones_like(u)], -1) @ \
+            np.linalg.inv(self.K).T
+        rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+        self._rays_cam = torch.as_tensor(rays, device=self.device)
+
+    def _texture(self, p: torch.Tensor, footprint: torch.Tensor,
+                 smear_vec: torch.Tensor) -> torch.Tensor:
+        """Smooth waves (0.6) + square waves attenuated by the footprint
+        Gaussian on their fundamental (0.4), float32."""
+        smooth = self.tex(p, footprint, smear_vec)
+        sq = torch.sign(torch.sin(p.float() @ self._sq_k.T + self._sq_phase))
+        q = (0.5 * footprint.float()[..., None] * self._sq_knorm) ** 2
+        q = q + (smear_vec.float() @ self._sq_k.T) ** 2
+        sq = (sq * torch.exp(-0.5 * q)).mean(-1)
+        return torch.clamp(0.6 * smooth + 0.4 * (127.5 + 120.0 * sq), 0, 255)
+
+    def render(self, T_wc: np.ndarray) -> torch.Tensor:
+        """(H, W) uint8 image on the scene's device."""
+        return self.render_with_geometry(T_wc)[0]
+
+    @torch.no_grad()
+    def render_with_geometry(self, T_wc: np.ndarray):
+        """(image u8 (H,W), hit world points (H,W,3), ray depth (H,W);
+        sky pixels have depth inf and hit point 0)."""
+        T = torch.as_tensor(np.asarray(T_wc, np.float64), device=self.device)
+        C = T[:3, 3]
+        d = self._rays_cam @ T[:3, :3].T
+        dn = torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+        H, W = self.hw
+        inv_f = 1.0 / float(self.K[0, 0])
+
+        def smear_for(axis: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            # anisotropic half-axis 0.5 (t/f) d_perp / |d.n|
+            cosi = d.gather(-1, axis[..., None]).abs()[..., 0]
+            d_perp = d.scatter(-1, axis[..., None], 0.0)
+            sv = (0.5 * inv_f * t / torch.clamp(cosi, min=1e-3))[..., None] \
+                * d_perp
+            mag = torch.linalg.norm(sv, dim=-1, keepdim=True)
+            return (sv * (torch.clamp(mag, max=25.0)
+                          / torch.clamp(mag, min=1e-12))).float()
+
+        tg = (self.ground_y - C[1]) / dn[..., 1]
+        okg = (tg > 0.2) & (d[..., 1] > 0)
+        t_best = torch.where(okg, tg, torch.full_like(tg, float("inf")))
+        smear = torch.where(okg[..., None], smear_for(
+            torch.ones((H, W), dtype=torch.long, device=self.device), tg),
+            torch.zeros((H, W, 3), device=self.device))
+        for lo, hi in self._boxes:                   # slab test per box
+            t1 = (lo - C) / dn
+            t2 = (hi - C) / dn
+            tmin = torch.minimum(t1, t2)
+            tn = tmin.max(-1).values
+            tf = torch.maximum(t1, t2).min(-1).values
+            ok = (tn < tf) & (tf > 0.2) & (tn > 0.2) & (tn < t_best)
+            t_best = torch.where(ok, tn, t_best)
+            smear = torch.where(ok[..., None],
+                                smear_for(tmin.argmax(-1), tn), smear)
+
+        hitmask = torch.isfinite(t_best)
+        t_safe = torch.where(hitmask, t_best, torch.zeros_like(t_best))
+        hit = C + t_safe[..., None] * d
+        fpx = t_safe / float(self.K[0, 0])
+        img = torch.where(hitmask, self._texture(hit, fpx, smear),
+                          torch.full_like(fpx, 230.0, dtype=torch.float32))
+        shade = 1.0 / (1.0 + 0.004 * torch.clamp(t_safe, 0, 200))
+        out = torch.clamp(img.double() * torch.where(
+            hitmask, shade, torch.ones_like(shade)), 0, 255).to(torch.uint8)
+        return (out, torch.where(hitmask[..., None], hit,
+                                 torch.zeros_like(hit)),
+                torch.where(hitmask, t_best,
+                            torch.full_like(t_best, float("inf"))))
+
+
+SCENE_FAMILIES = {"corridor": CorridorScene, "boxes": BoxScene}
 
 
 def render_sequence(family: str, seed: int, hw, K, n_frames: int,
@@ -260,8 +395,14 @@ def generate_kitti_sequence(out_dir: str, n_frames: int = 60, seed: int = 0,
         else:
             T_wc = make_loop_trajectory(n_frames, speed=speed,
                                         closure_frac=closure_frac)
-        scene_kw["wall_x"] = float(max(10.0,
-                                       np.abs(T_wc[:, 0, 3]).max() + 6.0))
+        if scene == "corridor":
+            scene_kw["wall_x"] = float(
+                max(10.0, np.abs(T_wc[:, 0, 3]).max() + 6.0))
+        else:
+            # a lap sweeps every heading: a denser box field leaves no
+            # view facing bare sky
+            scene_kw["path"] = T_wc[:, :3, 3]
+            scene_kw["n_boxes"] = 160
     else:
         T_wc = make_trajectory(n_frames, speed=speed,
                                yaw_rate_deg=yaw_rate_deg)

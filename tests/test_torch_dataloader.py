@@ -282,5 +282,10 @@ def test_synth_cli_writes_a_sequence_the_port_reads(tmp_path):
     seq = Sequence.load(_args("kitti", out))
     assert len(seq) == 3 and seq.gt.shape == (3, 3, 4)
     assert seq.frame(2).shape == (48, 96, 3)
-    with pytest.raises(SystemExit):
-        synth.main(["--out", out, "--scene", "boxes"])
+    boxes = str(tmp_path / "boxes")
+    assert synth.main(["--out", boxes, "--frames", "2", "--hw", "48", "96",
+                       "--device", "cpu", "--scene", "boxes",
+                       "--trajectory", "square"]) == 0
+    assert Sequence.load(_args("kitti", boxes)).frame(1).shape == (48, 96, 3)
+    with pytest.raises(SystemExit):             # PhotoScene is not ported
+        synth.main(["--out", out, "--scene", "photo"])

@@ -266,7 +266,7 @@ def follow_runs(corridor):
                 j_pts=int(jst.n_points), p_pts=int(pstate.n_points),
                 f_pts=int(forced.n_points)))
     return dict(start=start, rows=rows, reads=pstep.host_reads, T=T,
-                shapes=shapes, fc=pfc)
+                shapes=shapes, fc=pfc, jfc=jfc, jstate=jst, ref=ref, key=key)
 
 
 def _same_step(r, p, pose_tol=FOLLOW_POSE_TOL):
@@ -372,13 +372,17 @@ def test_fused_loop_matches_host(corridor):
 
 def test_fused_loop_raises_for_loop_closure_and_without_a_device(
         corridor, monkeypatch):
+    """The fused loop with the closer on runs without a GPU only with
+    ``device="cpu"`` (loop closure itself no longer raises: it is held by
+    ``tests/test_torch_loop.py``); without that device, every entry point
+    raises."""
+    from simpleslam_tpu_torch import run_slam
     from simpleslam_tpu_torch.config import parse_config
-    from simpleslam_tpu_torch.run_slam import SLAMSystem, run_fused_loop
+    from simpleslam_tpu_torch.run_slam import SLAMSystem
     hw, K, argv, _T, _frames = corridor
-    with pytest.raises(NotImplementedError, match="loop closure"):
-        run_fused_loop(parse_config(argv + ["--loop_closure"]), None, [],
-                       None, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_slam.run(parse_config(argv + ["--loop_closure", "--fused"]))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SLAMSystem(parse_config(argv), K, img_hw=hw)
     from simpleslam_tpu_torch.core.fused import (build_fused_step,
@@ -386,6 +390,82 @@ def test_fused_loop_raises_for_loop_closure_and_without_a_device(
     fc = make_fused_config(parse_config(argv), hw, 512, 128)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_fused_step(fc, K, None, None)
+
+
+def test_sync_archive_and_host_correction_match_reference(follow_runs):
+    """On the lockstep run's last state with 40 of the bootstrap's
+    landmarks evicted on the device: ``sync_to_host`` gives the
+    reference's host map (the evicted landmarks archived with their
+    (keyframe, keypoint) pairs, live ids, positions to 1e-6 m, poses,
+    keyframes); then, after the same rigid rewrite of both host maps (as a
+    closure's), ``apply_host_correction`` gives the reference's positions,
+    ring poses, ``Tcw``, ``Tcw_prev`` (1e-5) and ``ba_floor_kf``."""
+    import copy
+    from types import SimpleNamespace
+    import jax.numpy as jnp
+    from simpleslam_tpu.core.fused import apply_host_correction as j_apply
+    from simpleslam_tpu.core.fused import sync_to_host as j_sync
+    from simpleslam_tpu_torch.core.fused import (apply_host_correction,
+                                                 sync_to_host)
+    from test_torch_loop import port_keyframes, port_map
+    ref, jst = follow_runs["ref"], follow_runs["jstate"]
+    alive, pid = np.array(jst.alive), np.array(jst.pid)
+    host_pids = set(ref.world_map.point_ids())
+    rows = [r for r in range(int(jst.n_points))
+            if alive[r] and int(pid[r]) in host_pids][:40]
+    assert len(rows) == 40
+    alive[rows] = False
+    jst = jst.replace(alive=jnp.asarray(alive))
+    pst = _to_port_state(jst, follow_runs["key"])
+
+    def system(port):
+        return SimpleNamespace(
+            world_map=port_map(ref.world_map) if port
+            else copy.deepcopy(ref.world_map),
+            kfs=port_keyframes(ref.kfs) if port else list(
+                copy.copy(kf) for kf in ref.kfs),
+            frame_ids=list(ref.frame_ids), tracking_lost_count=0,
+            last_kf_frame_no=ref.last_kf_frame_no,
+            device=torch.device("cpu"))
+
+    js, ps = system(False), system(True)
+    jh = j_sync(js, jst, follow_runs["jfc"])
+    ph = sync_to_host(ps, pst, follow_runs["fc"])
+    jm, pm = js.world_map, ps.world_map
+    evicted = {int(pid[r]) for r in rows}
+    assert evicted <= set(jm.archived) and list(pm.archived) == \
+        list(jm.archived)
+    for p, (pos, obs, created) in jm.archived.items():
+        assert np.abs(pm.archived[p][0] - pos).max() <= 1e-6
+        assert pm.archived[p][1:] == (obs, created)
+    assert pm.point_ids() == jm.point_ids()
+    assert np.abs(pm.get_point_array() - jm.get_point_array()).max() <= 1e-6
+    assert ps.frame_ids == js.frame_ids
+    np.testing.assert_allclose(np.stack(pm.poses), np.stack(jm.poses),
+                               atol=1e-6)
+    assert [k.frame_idx for k in ps.kfs] == [k.frame_idx for k in js.kfs]
+
+    # the same rigid rewrite of both host maps
+    W = np.eye(4)
+    W[:3, :3] = np.array([[0.8, -0.6, 0], [0.6, 0.8, 0], [0, 0, 1.0]])
+    W[:3, 3] = [0.3, -0.2, 0.5]
+    Winv = np.linalg.inv(W)
+    for m, kfs in ((jm, js.kfs), (pm, ps.kfs)):
+        rows_m = np.fromiter(m._row.values(), np.int64, len(m))
+        m._positions[rows_m] = m._positions[rows_m] @ W[:3, :3].T + W[:3, 3]
+        m.poses = [T @ Winv for T in m.poses]
+        for kf in kfs:
+            kf.pose = np.asarray(kf.pose) @ Winv
+    j_new = j_apply(jst, js, follow_runs["jfc"], jh)
+    p_new = apply_host_correction(pst, ps, follow_runs["fc"], ph)
+    for name in ("positions", "kf_pose", "Tcw", "Tcw_prev"):
+        np.testing.assert_allclose(getattr(p_new, name).numpy(),
+                                   np.asarray(getattr(j_new, name)),
+                                   atol=1e-5, err_msg=name)
+    assert int(p_new.ba_floor_kf) == int(j_new.ba_floor_kf) == \
+        int(pst.kf_count)
+    assert not torch.equal(p_new.positions, pst.positions)
+
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()

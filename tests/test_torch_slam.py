@@ -373,6 +373,17 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
      "--global_reloc_after", "5", "--global_reloc_min_sim", "0.4",
      "--loop_grid", "3", "--assoc_wide_factor", "3", "--mvt_rep_err", "1.5",
      "--loop_closure", "--no_global_reloc"],
+    # global BA's flags
+    ["--gba_enable", "--gba_every", "7", "--gba_max_points", "500",
+     "--gba_max_iters", "12", "--gba_fix_first", "0"],
+    # loop closure's flags and the fused loop's rescue
+    ["--loop_closure", "--fused_rescue_after", "12", "--loop_min_sim", "0.6",
+     "--loop_gap_kfs", "9", "--loop_min_inliers", "20",
+     "--loop_ransac_thresh", "0.2", "--loop_max_scale", "8",
+     "--loop_weight", "2", "--loop_topk", "3", "--loop_pgo_iters", "10",
+     "--loop_min_inlier_frac", "0.05", "--loop_confirm", "1",
+     "--loop_confirm_window", "6", "--loop_confirm_strong", "0.2",
+     "--loop_drift_frac_max", "0.4"],
     # the README's CLI flags
     ["--dataset", "kitti", "--base_dir", "/data/synth", "--headless",
      "--no_viz3d", "--fused", "--prefetch", "2", "--stage_all", "--matcher",
@@ -389,15 +400,12 @@ def test_config_matches_reference(argv):
         f.name: getattr(ref, f.name) for f in dataclasses.fields(port)}
 
 
-@pytest.mark.parametrize("argv", [["--resume", "x"],
-                                  ["--fused_rescue_after", "12"],
-                                  ["--gba_enable"], ["--fps", "5"],
+@pytest.mark.parametrize("argv", [["--resume", "x"], ["--fps", "5"],
                                   ["--kf_thumb_hw", "320", "180"]])
 def test_config_rejects_flags_of_unported_paths(argv):
-    """Resuming a saved state, the loop-closure rescue, global BA, the
-    keyframe thumbnails' size and ``--fps`` (read by nothing in the
-    reference either) have no reader in the port: the parser refuses them
-    instead of ignoring them."""
+    """Resuming a saved state, the keyframe thumbnails' size and ``--fps``
+    (read by nothing in the reference either) have no reader in the port:
+    the parser refuses them instead of ignoring them."""
     from simpleslam_tpu.config import parse_config as jparse
     from simpleslam_tpu_torch.config import parse_config
     jparse(argv)
