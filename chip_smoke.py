@@ -10,8 +10,9 @@ any failure raises and exits nonzero, and no result line is printed.
 
 Phases:
   1. env      versions, the card's name and power limit;
-  2. build    nvcc builds the port's CUDA sources, one process each,
-              all started together;
+  2. build    nvcc builds the port's CUDA sources and the host's C++
+              compiler its native codec and readahead (``native.py``), one
+              process each, all started together;
   3. kernel   the masked-attention kernel against its plain PyTorch version
               at (BH=4, N=256) with a fully masked head and at the main
               path's (BH=4, N=2048), float32 and bfloat16 inputs; in the
@@ -123,13 +124,39 @@ Phases:
               launches inside the ``loop`` stage, closures, ATE; frame 0
               and every frame from the bootstrap on posed, the same
               frames with and without the closer;
-  9. kernels  one JSON line, one entry per kernel.
+  9. detectors_state  SIFT and AKAZE, saved state, resume and
+              localisation-only, on phase 7's 40-frame corridor at 370x1226
+              rendered on the card: (a) one extract of each detector on
+              frame 0 at 4096 keypoints against the port's CPU extract of
+              the same frame (shared keypoints, SIFT orientations and
+              descriptors, AKAZE bits, the antialiased halving at each
+              octave's size), ms per extract back to back and alone,
+              device kernels and busy time, synchronising calls; (b)
+              ``run`` with ``--detector sift`` and ``akaze``, host and
+              ``--fused``, over the first DETECTOR_FRAMES frames, held to
+              the JAX package's CPU readings over RANSAC seeds 0-3
+              (DETECTOR_REF); (c) with the ORB front-end: the first
+              STATE_FRAMES frames mapped with ``--save_state``,
+              ``--resume`` over all frames, host and ``--fused`` (each
+              continues at the frame after the saved ``frame_ids[-1]``,
+              the saved poses loaded bit for bit) and ``--resume --localize_only`` over all frames (the
+              map frozen bit for bit, no global BA, the first pose from
+              global relocalisation, the reference test's bounds), the
+              reference's three ValueErrors, the state's size, its
+              thumbnails' bytes (``b""`` where cv2 is missing, as in the
+              reference) and save and load seconds, a 1 MB LZ4 round trip
+              through the codec built here; (d) what the frame readahead
+              and the keyframe thumbnails cost: the fused ORB run over
+              all frames with and without the readahead, and one
+              thumbnail's milliseconds;
+  10. kernels one JSON line, one entry per kernel.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -591,22 +618,52 @@ def main_path_ok(res: dict, ate_max: float = MAIN_ATE_MAX,
                 and res["match_calls_fused_loop"] > 0 and kernel_ok)
 
 
+def device_events(fn, cpu: bool = False, tries: int = 3) -> list:
+    """The device records of one call of ``fn`` under torch.profiler (with
+    ``cpu``, host activity is traced too). Now and then the profiler returns
+    no device record at all for a session, for a call whose output was right
+    (seen twice on an H100: once here in ``device_kernels``, once in phase
+    7's ORB timing); such a session is taken again, up to ``tries`` times. A
+    session with any record is final; after ``tries`` empty sessions the
+    list is empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            return evs
+    return []
+
+
+def untraced(fn) -> dict:
+    """What a trace reports when the profiler gave no device record in any
+    of :func:`device_events`' sessions: the trace's numbers as None (not
+    measured) and one call's time between two CUDA events instead."""
+    return {"device_kernels": None, "window_ms": None,
+            "device_busy_ms": None, "idle_share": None,
+            "not_measured": "torch.profiler recorded no device activity",
+            "event_ms": forward_times_ms(fn, warmup=0, runs=1)[0]}
+
+
 def device_idle_share(fn) -> dict:
     """One call of ``fn`` under torch.profiler (device activity only): the
     span from the first kernel's start to the last one's end, the time
-    with a kernel running, and the idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    busy, window = busy_and_window(spans)
-    return {"device_kernels": len(spans), "window_ms": window / 1e3,
+    with a kernel running, and the idle share (:func:`untraced` where the
+    profiler recorded nothing on the device)."""
+    evs = device_events(fn)
+    if not evs:
+        return untraced(fn)
+    busy, window = busy_and_window(
+        [(e.time_range.start, e.time_range.end) for e in evs])
+    return {"device_kernels": len(evs), "window_ms": window / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / window}
 
 
@@ -753,24 +810,8 @@ def call_times(fn, iters: int = 20, warmup: int = 3,
 
 def device_kernels(fn) -> list:
     """Names of the device kernels that one call of ``fn`` runs
-    (torch.profiler). Now and then the profiler returns no device record
-    at all for a session (seen once on an H100, for a call whose output
-    was right); such a session is taken again, up to three times. A
-    session with any record is final."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    names = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    return names
+    (torch.profiler, :func:`device_events`)."""
+    return [e.name for e in device_events(fn, cpu=True)]
 
 
 def attention_inputs(seed, BH, N, device, dtype, dead_head=None):
@@ -979,19 +1020,12 @@ def profile_forward(fn) -> dict:
     """One call of ``fn`` under torch.profiler: device time by kernel name
     (the eight largest), the span from the first kernel's start to the last
     one's end, the share of it with no kernel running, and the
-    masked-attention kernel's time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    masked-attention kernel's time (:func:`untraced` where the profiler
+    recorded nothing on the device)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = device_events(fn, cpu=True)
     if not evs:
-        raise RuntimeError("torch.profiler recorded no device activity")
+        return dict(untraced(fn), attention_ms=None, kernel_ms_by_name=None)
     spans = [(e.time_range.start, e.time_range.end) for e in evs]
     by_name = {}
     for e in evs:
@@ -2159,6 +2193,494 @@ def run_loop_phase(dev, weights) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: SIFT and AKAZE, saved state, resume and localisation-only
+# --------------------------------------------------------------------------- #
+
+# (b) the CLI over the first DETECTOR_FRAMES frames of tools.synth's corridor
+# (seed 0, 370x1226, the CLI's 4000 features padded to 4096): the depth is
+# cut from phase 7's 40 frames to keep the smoke's time. The JAX package's
+# CPU readings of the same runs over RANSAC seeds 0-3, per detector and
+# loop, host or fused (``JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_sift_akaze.py --reference --frames 16 --seeds 0,1,2,3``):
+# lost frames, ATE (m), keyframes and frames posed. Both packages keep the
+# same keyframe frames and lost counts over the seeds (SIFT [0, 1, 7, 13],
+# AKAZE [0, 2, 8, 14]); SIFT finds ~210 keypoints a frame and lives on the
+# 2D-2D fallback. Each card run is held to the reference's spread: lost
+# frames at most its most, frames posed at least its least, keyframes within
+# CLI_KF_SLACK, ATE at most max(2 x its largest, CLI_ATE_FLOOR).
+DETECTOR_FRAMES = 16
+DETECTOR_REF = {
+    ("sift", "host"): {"lost": [11, 11, 12, 11], "ate_m": [
+        0.04832264144595838, 0.19822492032813102, 0.06553995952980898,
+        0.05723530345264299], "keyframes": 4, "posed": 16},
+    ("sift", "fused"): {"lost": [11, 11, 12, 11], "ate_m": [
+        0.05363412851673827, 0.1933799167469293, 0.07104405395289336,
+        0.06221113701274984], "keyframes": 4, "posed": 16},
+    ("akaze", "host"): {"lost": [0, 0, 0, 0], "ate_m": [
+        0.7220102161898999, 0.05117950090834697, 0.4451642545675508,
+        0.5347674471273104], "keyframes": 4, "posed": 15},
+    ("akaze", "fused"): {"lost": [0, 0, 0, 0], "ate_m": [
+        0.7150931758920112, 0.02942760019789098, 0.5547319728240113,
+        0.6659577580606916], "keyframes": 4, "posed": 15},
+}
+# (a) card against CPU on the same frame: the share of the CPU's keypoints
+# with a card keypoint at the same place, of SIFT orientations (on the same
+# gradients) that agree within DETECTOR_ORIENT_TOL rad, of shared SIFT
+# descriptors within DETECTOR_L2_TOL, and the share of AKAZE bits that
+# differ: the CPU tests' tolerances against the JAX package
+# (tests/test_torch_sift_akaze.py), the descriptors' loosened by 1% for
+# orientations that flip.
+DETECTOR_SHARED_MIN = 0.99
+DETECTOR_ORIENT_TOL = 1e-5
+DETECTOR_L2_TOL = 1e-4
+DETECTOR_BITS_MAX = 0.01
+# the antialiased halving (``F.interpolate``) on the card against the CPU,
+# on AKAZE's levels in [0, 1]: the CUDA kernel weighs the taps in another
+# order (an H100 read 1.8e-6 at 185x613, 0 at the other sizes)
+DETECTOR_HALVING_TOL = 1e-5
+# (c) the saved-state runs (phase 7's ORB front-end): map the first
+# STATE_FRAMES frames, resume over all CLI_FRAMES, localise over all. The
+# localisation holds tests/test_localize.py's bounds (12 of 18 frames posed
+# there, so two thirds; the first posed frame at most 2) but for lost
+# frames: that test's 4 holds over mapped frames, and here half the frames
+# lie past the map. The JAX package's readings of this flow on the CPU over
+# RANSAC seeds 0-3 (``JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_resume.py --reference --map_frames 20 --frames 40
+# --seeds 0,1,2,3``): 6, 9, 8, 7 lost, every frame posed, the first at
+# frame 0. A loaded map's binary descriptor rings read as zeros in both
+# packages, so tracking runs on keyframe and global relocalisation.
+STATE_FRAMES = 20
+LOCALIZE_FIRST_MAX = 2
+LOCALIZE_LOST_MAX = 9
+
+
+@contextlib.contextmanager
+def recorded_systems():
+    """The ``run_slam.SLAMSystem``s that ``run`` builds meanwhile, in a
+    list; each keeps a copy of its map's poses at its first extract
+    (``poses_at_start``: after a resume, the loaded ones)."""
+    from simpleslam_tpu_torch import run_slam
+    made = []
+
+    class Recording(run_slam.SLAMSystem):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.poses_at_start = None
+            made.append(self)
+
+        def extract(self, img):
+            if self.poses_at_start is None:
+                self.poses_at_start = [p.copy() for p in self.world_map.poses]
+            return super().extract(img)
+    run_slam.SLAMSystem = Recording
+    try:
+        yield made
+    finally:
+        run_slam.SLAMSystem = Recording.__bases__[0]
+
+
+def prefix_sequence(src: str, dst: str, n: int) -> str:
+    """A KITTI-layout sequence of the first ``n`` frames of the one under
+    ``src`` (frames linked, poses cut)."""
+    img_src = os.path.join(src, "kitti", "05", "image_0")
+    img_dst = os.path.join(dst, "kitti", "05", "image_0")
+    os.makedirs(img_dst)
+    os.makedirs(os.path.join(dst, "kitti", "poses"))
+    for name in sorted(os.listdir(img_src))[:n]:
+        os.symlink(os.path.join(img_src, name), os.path.join(img_dst, name))
+    with open(os.path.join(src, "kitti", "poses", "05.txt")) as f:
+        rows = f.readlines()[:n]
+    with open(os.path.join(dst, "kitti", "poses", "05.txt"), "w") as f:
+        f.writelines(rows)
+    return dst
+
+
+def shared_keypoints(ref: dict, other: dict) -> np.ndarray:
+    """For each valid row of ``ref`` (host arrays of Features), the valid
+    row of ``other`` at the same place (within 1e-3 px) with the nearest
+    score, or -1."""
+    rows = np.full(len(ref["kpts"]), -1)
+    for i in np.flatnonzero(ref["valid"]):
+        near = np.flatnonzero(other["valid"] & (np.abs(
+            other["kpts"] - ref["kpts"][i]).max(1) <= 1e-3))
+        if len(near):
+            rows[i] = near[np.argmin(np.abs(other["scores"][near]
+                                            - ref["scores"][i]))]
+    return rows
+
+
+def detector_card_vs_cpu(name: str, grey, n_kp: int) -> dict:
+    """One extract of ``name`` on the card and on the CPU, on the same grey
+    frame: shared keypoints, and for SIFT the orientations on the same
+    gradients (the CPU's, at the CPU's keypoints) and the shared
+    descriptors' L2 errors, for AKAZE the shared descriptors' bits that
+    differ and the antialiased halving at each octave's size."""
+    import torch
+    from simpleslam_tpu_torch.ops import features_akaze, features_sift
+    fn = {"sift": features_sift.sift_detect_and_describe,
+          "akaze": features_akaze.akaze_detect_and_describe}[name]
+    a = fn(grey, max_kp=n_kp).numpy()
+    b = fn(grey.cpu(), max_kp=n_kp).numpy()
+    rows = shared_keypoints(b, a)
+    ok = rows >= 0
+    out = {"valid": [int(a["valid"].sum()), int(b["valid"].sum())],
+           "shared": float(ok.sum() / max(1, b["valid"].sum()))}
+    if name == "sift":
+        G, _ = features_sift._dog_stack(grey.cpu().float() / 255.0)
+        gx, gy = features_sift._grad(G[1])
+        k = torch.as_tensor(b["kpts"][b["valid"]]).long()
+        th = [features_sift._orientations(gx.to(d), gy.to(d), k[:, 0].to(d),
+                                          k[:, 1].to(d)).cpu().numpy()
+              for d in (grey.device, "cpu")]
+        err = np.linalg.norm(b["desc"][ok] - a["desc"][rows[ok]], axis=1)
+        out.update(orient_agree=float(np.mean(np.abs(th[0] - th[1])
+                                              <= DETECTOR_ORIENT_TOL)),
+                   desc_within_tol=float(np.mean(err <= DETECTOR_L2_TOL)),
+                   desc_l2_max=float(err.max(initial=0.0)))
+    else:
+        bits = np.unpackbits(b["desc"][ok] ^ a["desc"][rows[ok]], axis=1)
+        L = features_akaze.nonlinear_scale_space(grey.cpu())
+        halves = {}
+        for lvl in (3, 7, 11):
+            x = L[lvl][0]
+            halves["x".join(map(str, x.shape))] = float((
+                features_akaze.resize_half(x.to(grey.device)).cpu()
+                - features_akaze.resize_half(x)).abs().max())
+        out.update(bits_differing=float(bits.sum() / max(1, 486 * ok.sum())),
+                   rows_identical=float(np.mean(bits.sum(1) == 0)),
+                   halving_card_vs_cpu=halves)
+    return out
+
+
+def detector_ok(name: str, r: dict) -> bool:
+    if r["shared"] < DETECTOR_SHARED_MIN:
+        return False
+    if name == "sift":
+        return (r["orient_agree"] >= DETECTOR_SHARED_MIN
+                and r["desc_within_tol"] >= DETECTOR_SHARED_MIN - 0.01)
+    return (r["bits_differing"] <= DETECTOR_BITS_MAX
+            and max(r["halving_card_vs_cpu"].values())
+            <= DETECTOR_HALVING_TOL)
+
+
+def detector_parts(grey) -> dict:
+    """The queue-B.3 candidates inside one extract, each alone: SIFT's
+    octave-0 scale space (five double blurs and the DoG) with its
+    26-neighbour extrema, and AKAZE's nonlinear scale space (the FED
+    cycles): the median of single calls (ms), device kernels and busy
+    time."""
+    from simpleslam_tpu_torch.ops import features_akaze, features_sift
+    img = grey.float() / 255.0
+    out = {}
+    for name, fn in (
+            ("sift_octave0_dog_extrema", lambda: features_sift._extrema_mask(
+                features_sift._dog_stack(img)[1])),
+            ("akaze_scale_space",
+             lambda: features_akaze.nonlinear_scale_space(grey))):
+        prof = device_idle_share(fn)
+        out[name] = {"ms_alone": float(np.median(forward_times_ms(fn,
+                                                                  runs=5))),
+                     "device_kernels": prof["device_kernels"],
+                     "device_busy_ms": prof["device_busy_ms"]}
+    return out
+
+
+def detector_times(dev, grey, n_kp: int = 4096) -> dict:
+    """SIFT's and AKAZE's extract at ``n_kp`` keypoints on the card: ms per
+    extract back to back (CUDA events around 10 calls), the median of
+    single calls, device kernels and busy time of one call (torch.profiler)
+    and its synchronising calls; each against the CPU's extract of the
+    same frame (:func:`detector_card_vs_cpu`); and :func:`detector_parts`."""
+    import torch
+    from simpleslam_tpu_torch.ops import features_akaze, features_sift
+    out = {"parts": detector_parts(grey)}
+    for name, fn in (("sift", features_sift.sift_detect_and_describe),
+                     ("akaze", features_akaze.akaze_detect_and_describe)):
+        call = (lambda fn=fn: fn(grey, max_kp=n_kp))
+        singles = forward_times_ms(call, runs=10)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(10):
+            call()
+        b.record()
+        torch.cuda.synchronize()
+        n_syncs, sites = count_syncs(call)
+        prof = device_idle_share(call)
+        r = {"ms": a.elapsed_time(b) / 10,
+             "ms_alone": float(np.median(singles)),
+             "device_kernels": prof["device_kernels"],
+             "device_busy_ms": prof["device_busy_ms"],
+             "syncs": n_syncs, "sync_sites": sites,
+             "card_vs_cpu": detector_card_vs_cpu(name, grey, n_kp)}
+        if not detector_ok(name, r["card_vs_cpu"]):
+            raise RuntimeError(f"{name} on the card against the CPU: {r}")
+        out[name] = r
+    return out
+
+
+def detector_run_ok(key, r: dict) -> list:
+    ref = DETECTOR_REF[key]
+    failed = []
+    if not (r["ate_m"] is not None and math.isfinite(r["ate_m"])
+            and r["ate_m"] <= r["ate_max"]):
+        failed.append("ate_m")
+    if r["lost"] > max(ref["lost"]):
+        failed.append("lost")
+    if r["frames_posed"] < ref["posed"]:
+        failed.append("frames_posed")
+    if abs(r["keyframes"] - ref["keyframes"]) > CLI_KF_SLACK:
+        failed.append("keyframes")
+    return failed
+
+
+def run_detector_cli(base: str) -> dict:
+    """Phase 9 (b): ``run`` with ``--detector sift`` and ``akaze``, host
+    and ``--fused``, over the sequence under ``base``, each held to
+    DETECTOR_REF. Raises on a failed check."""
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    readme = ["--dataset", "kitti", "--base_dir", base, "--headless",
+              "--no_viz3d"]
+    res = {}
+    for det in ("sift", "akaze"):
+        for mode in ("host", "fused"):
+            ref = DETECTOR_REF[(det, mode)]
+            argv = ["--detector", det] + (["--fused"] if mode == "fused"
+                                          else [])
+            t0 = time.time()
+            out = run_slam.run(parse_config(readme + argv))
+            r = {"argv": argv, "run_s": time.time() - t0, "ate_m": out.ate,
+                 "lost": out.tracking_lost_count,
+                 "keyframes": out.n_keyframes, "kf_frames": out.kf_frames,
+                 "frames_posed": len(out.poses_cw),
+                 "map_points": out.n_landmarks, "frames_per_s": out.fps,
+                 "ate_max": max(2 * max(ref["ate_m"]), CLI_ATE_FLOOR),
+                 "jax_cpu": ref}
+            res[f"{det}_{mode}"] = r
+            failed = detector_run_ok((det, mode), r)
+            if failed:
+                raise RuntimeError(f"{det} {mode} run failed {failed}: {r}")
+    return res
+
+
+def run_state_runs(dev, base: str, tmp: str) -> dict:
+    """Phase 9 (c), phase 7's ORB front-end: the first STATE_FRAMES frames
+    of ``base`` mapped with ``--save_state``; ``--resume`` over all of
+    them, host and ``--fused`` (each continues at the frame after the saved
+    ``frame_ids[-1]``, the loaded poses are the mapping run's bit for
+    bit); ``--resume --localize_only`` over all of them (keyframes, landmark count and
+    positions unchanged bit for bit, no global BA, the first pose from
+    global relocalisation, LOCALIZE_* bounds); the reference's three
+    ValueErrors; the state's size, a save's and a load's seconds; a 1 MB
+    LZ4 round trip through the codec built here. Raises on a failed
+    check."""
+    import logging
+    from simpleslam_tpu_torch import native, run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.utils.serialize import load_state, save_state
+    short = prefix_sequence(base, os.path.join(tmp, "short"), STATE_FRAMES)
+    state = os.path.join(tmp, "state.npz")
+
+    def argv(b, *extra):
+        return parse_config(["--dataset", "kitti", "--base_dir", b,
+                             "--headless", "--no_viz3d", *extra])
+    failed, res = [], {"frames": [STATE_FRAMES, CLI_FRAMES]}
+    t0 = time.time()
+    with recorded_systems() as made:
+        mapped = run_slam.run(argv(short, "--save_state", state))
+    res["map_s"] = time.time() - t0
+    system = made[0]
+    res["state_bytes"] = os.path.getsize(state)
+    again = os.path.join(tmp, "again.npz")
+    t0 = time.time()
+    save_state(again, system.world_map, system.kfs, system.cfg,
+               system.frame_ids)
+    res["save_s"] = time.time() - t0
+    t0 = time.time()
+    m, kfs, _cfg, fids = load_state(state, device=dev)
+    res["load_s"] = time.time() - t0
+    # cv2 makes the thumbnails; without it (the card's machine) they are
+    # b"", as in the reference
+    res["thumb_bytes"] = [len(k.thumb) for k in kfs]
+    res["cv2"] = importlib.util.find_spec("cv2") is not None
+    res["mapped"] = {"keyframes": len(kfs), "landmarks": len(m),
+                     "frame_ids_last": fids[-1], "ate_m": mapped.ate}
+    if not np.array_equal(np.stack(m.poses), np.stack(mapped.poses_cw)):
+        failed.append("saved poses")
+
+    n = len(m.poses)
+    for name, extra in (("resume", []), ("resume_fused", ["--fused"])):
+        t0 = time.time()
+        with recorded_systems() as made:
+            resumed = run_slam.run(argv(base, "--resume", state, *extra))
+        res[name] = {"run_s": time.time() - t0, "ate_m": resumed.ate,
+                     "lost": resumed.tracking_lost_count,
+                     "keyframes": resumed.n_keyframes,
+                     "next_frame": resumed.frame_ids[n],
+                     "last_frame": resumed.frame_ids[-1]}
+        if not (resumed.frame_ids[:n] == fids
+                and resumed.frame_ids[n] == fids[-1] + 1
+                and resumed.frame_ids[-1] == CLI_FRAMES - 1):
+            failed.append(f"{name} frames")
+        if not np.array_equal(np.stack(made[0].poses_at_start),
+                              np.stack(mapped.poses_cw)):
+            failed.append(f"{name} poses")
+
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: logged.append(rec.getMessage())
+    run_slam.logger.addHandler(handler)
+    t0 = time.time()
+    try:
+        with recorded_systems() as made:
+            loc = run_slam.run(argv(base, "--resume", state,
+                                    "--localize_only"))
+    finally:
+        run_slam.logger.removeHandler(handler)
+    first = next((msg for msg in logged if msg.startswith((
+        "[GRELOC] recovery", "[TRACK]", "[RELOC]", "[FALLBACK]"))), "")
+    res["localize"] = {"run_s": time.time() - t0, "ate_m": loc.ate,
+                       "lost": loc.tracking_lost_count,
+                       "posed": len(loc.poses_cw),
+                       "first_frame": loc.frame_ids[0] if loc.frame_ids
+                       else None, "first_event": first,
+                       "keyframes": loc.n_keyframes,
+                       "landmarks": loc.n_landmarks,
+                       "gba_runs": loc.gba_runs}
+    frozen = made[0].world_map
+    if not (loc.n_keyframes == len(kfs) and loc.n_landmarks == len(m)
+            and np.array_equal(frozen.get_point_array(),
+                               m.get_point_array())
+            and [k.frame_idx for k in made[0].kfs]
+            == [k.frame_idx for k in kfs]):
+        failed.append("map not frozen")
+    if not (loc.gba_runs == 0 and first.startswith("[GRELOC] recovery")
+            and loc.frame_ids and loc.frame_ids[0] <= LOCALIZE_FIRST_MAX
+            and loc.tracking_lost_count <= LOCALIZE_LOST_MAX
+            and len(loc.poses_cw) >= 2 * CLI_FRAMES / 3):
+        failed.append("localize")
+
+    refusals = {}
+    for extra, word in ((["--localize_only"], "resume"),
+                        (["--localize_only", "--resume", state, "--fused"],
+                         "fused"),
+                        (["--localize_only", "--resume", state,
+                          "--save_state", again], "save_state")):
+        try:
+            run_slam.run(argv(base, *extra))
+            refusals[word] = "ran"
+        except ValueError as e:
+            refusals[word] = str(e)
+    res["refusals"] = refusals
+    if not all(word in msg for word, msg in refusals.items()):
+        failed.append("refusals")
+
+    data = np.random.default_rng(0).integers(0, 16, 1 << 20, np.uint8)
+    data[::3] = 0
+    data = data.tobytes()
+    t0 = time.time()
+    blob = native.compress(data)
+    back = native.decompress(blob)
+    res["lz4_1mb"] = {"seconds": time.time() - t0, "ratio": len(blob)
+                      / len(data), "tag": blob[:1].decode()}
+    if back != data or blob[:1] != b"L":
+        failed.append("lz4")
+    if failed:
+        raise RuntimeError(f"saved-state runs failed {failed}: {res}")
+    return res
+
+
+# (d) the host work that the saved-state slice adds to phase 7's paths:
+# the native readahead of the frame files under the fused loop's
+# Prefetcher, measured as phase 7's fused ORB run over all CLI_FRAMES
+# frames with it, without it, without it and with it (the files were just
+# written, so every read is warm: a cold disk is not measured), and one
+# keyframe thumbnail (``make_thumb`` at the default ``--kf_thumb_hw``:
+# resize, JPEG, LZ4) on frame 0, the median of HOST_COST_REPS calls.
+HOST_COST_REPS = 20
+
+
+def run_host_costs(base: str) -> dict:
+    """Phase 9 (d) over the sequence under ``base``: ``frames_per_s`` of
+    the fused ORB runs in the order with, without, without, with the
+    readahead, and ``thumb_ms`` / ``thumb_bytes`` of one thumbnail (0 and
+    ``b""`` without cv2)."""
+    from simpleslam_tpu_torch import native, run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.core.keyframe import make_thumb
+    from simpleslam_tpu_torch.data import Sequence
+
+    class NoReadahead:
+        def __init__(self, paths):
+            pass
+
+        def stop(self):
+            pass
+    cfg = parse_config(["--dataset", "kitti", "--base_dir", base,
+                        "--headless", "--no_viz3d", "--fused"])
+    real = native.FilePrefetcher
+    runs = []
+    for on in (True, False, False, True):
+        native.FilePrefetcher = real if on else NoReadahead
+        try:
+            out = run_slam.run(cfg)
+        finally:
+            native.FilePrefetcher = real
+        runs.append({"readahead": on, "frames_per_s": out.fps,
+                     "lost": out.tracking_lost_count, "ate_m": out.ate})
+    frame = Sequence.load(cfg).frame(0)
+    hw = tuple(cfg.kf_thumb_hw)
+    times = []
+    for _ in range(HOST_COST_REPS):
+        t0 = time.perf_counter()
+        thumb = make_thumb(frame, hw)
+        times.append(time.perf_counter() - t0)
+    return {"fused_orb": runs,
+            "thumb_ms": float(np.median(times)) * 1e3 if thumb else 0.0,
+            "thumb_bytes": len(thumb), "thumb_hw": list(hw)}
+
+
+def run_detector_state_phase(dev) -> dict:
+    """Phase 9 in a temporary directory: phase 7's 40-frame corridor at
+    370x1226 rendered on the card by ``tools.synth``; (a) one extract of
+    SIFT and of AKAZE on its frame 0 at 4096 keypoints, timed and held to
+    the CPU's (:func:`detector_times`); (b) :func:`run_detector_cli` over
+    its first DETECTOR_FRAMES frames; (c) :func:`run_state_runs`; (d)
+    :func:`run_host_costs`."""
+    import tempfile
+    import torch
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.data import Sequence
+    from simpleslam_tpu_torch.ops import features
+    from simpleslam_tpu_torch.tools import synth
+    res = {"frames": CLI_FRAMES, "hw": list(synth.DEFAULT_HW)}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            base = os.path.join(tmp, "synth")
+            t0 = time.time()
+            with contextlib.redirect_stdout(sys.stderr):
+                rc = synth.main(["--out", base, "--frames", str(CLI_FRAMES)])
+            res["synth_s"] = time.time() - t0
+            if rc != 0:
+                raise RuntimeError(f"tools.synth exit code {rc}")
+            seq = Sequence.load(parse_config(["--dataset", "kitti",
+                                              "--base_dir", base]))
+            grey = features.rgb_to_gray(torch.as_tensor(seq.frame(0),
+                                                        device=dev))
+            res["times_ms"] = detector_times(dev, grey)
+            res["cli"] = run_detector_cli(prefix_sequence(
+                base, os.path.join(tmp, "cut"), DETECTOR_FRAMES))
+            res["state"] = run_state_runs(dev, base, tmp)
+            res["host_costs"] = run_host_costs(base)
+        finally:
+            os.chdir(cwd)
+    return res
+
+
 def main() -> None:
     t_all = time.time()
     import torch
@@ -2170,6 +2692,7 @@ def main() -> None:
     from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
                                                       LearnedMatcher,
                                                       seeded_init_)
+    from simpleslam_tpu_torch import native
     from simpleslam_tpu_torch.ops import attention
     from simpleslam_tpu_torch.utils import cuda_build
     dev = torch.device("cuda")
@@ -2184,7 +2707,7 @@ def main() -> None:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    sources = (attention.SOURCE, attention.BWD_SOURCE)
+    sources = (attention.SOURCE, attention.BWD_SOURCE, *native.SOURCES)
     outs = cuda_build.build_all(sources)
     ptxas = {src: [ln.strip() for ln in outs[src].splitlines()
                    if "registers" in ln or "spill" in ln] for src in sources}
@@ -2271,9 +2794,11 @@ def main() -> None:
         desc_rel_err_key_tile_dropped=d_control, P_max_abs_err=p_err,
         P_max=P_plain.max().item(), launches_per_forward=n_fwd,
         lightglue_forward_ms_median=fwd_median, lightglue_forward_ms=fwd_ms,
-        attention_share_of_forward=trace["attention_ms"] / fwd_median,
-        device_idle_share_of_median_forward=1 - trace["device_busy_ms"]
-        / fwd_median, trace=trace)
+        attention_share_of_forward=None if trace["attention_ms"] is None
+        else trace["attention_ms"] / fwd_median,
+        device_idle_share_of_median_forward=None
+        if trace["device_busy_ms"] is None
+        else 1 - trace["device_busy_ms"] / fwd_median, trace=trace)
 
     # 5a. trained weights ----------------------------------------------------
     t0 = time.time()
@@ -2310,7 +2835,12 @@ def main() -> None:
     lres = run_loop_phase(dev, weights)
     log("loop", t0, nvidia_smi=smi, **lres)
 
-    # 9. kernels -------------------------------------------------------------
+    # 9. SIFT and AKAZE, saved state, resume, localisation-only ------------
+    t0 = time.time()
+    dres = run_detector_state_phase(dev)
+    log("detectors_state", t0, nvidia_smi=smi, **dres)
+
+    # 10. kernels ------------------------------------------------------------
     # the self-attention mix: float32 q, k and bf16 v, the main path's
     # heavier call (its cross-attention mix is in phase 3's and phase 6b's
     # lines)

@@ -5,14 +5,16 @@ Each field and flag keeps the reference's name and default, so a launch
 command that sets only these flags configures either package (the README's
 and ``bench.py``'s argv included). ``headless`` and ``no_viz3d`` are
 parsed for that reason; viz waits in the roadmap (``run_slam.run`` raises
-without ``--headless``). Global BA (``gba_*``), loop closure (``loop_*``)
-and the fused loop's rescue (``--fused_rescue_after``) are ported. Flags of
-the paths not yet ported (resume and save of the state, localisation-only
-mode, the keyframe thumbnails' ``--kf_thumb_hw``, and ``--fps``, which
-nothing in the reference reads either) are absent: the parser rejects them
-rather than ignore them. ``--matcher`` is parsed and has no
-effect: ``bf`` and ``flann`` are both the brute-force matcher, as in the
-reference. ``--device`` (the port's own) chooses
+without ``--headless``). Global BA (``gba_*``), loop closure (``loop_*``),
+the fused loop's rescue (``--fused_rescue_after``), saved and resumed
+state (``--save_state``, ``--resume``), localisation-only mode
+(``--localize_only``) and the keyframe thumbnails' ``--kf_thumb_hw`` are
+ported. Flags of the paths not yet ported (``--trace_dir``, ``--viz_ba``,
+``--merge_radius`` and the TPU package's mesh and padding knobs) and
+``--fps``, which nothing in the reference reads, are absent: the parser
+rejects them rather than ignore them. ``--matcher`` is
+parsed and has no effect: ``bf`` and ``flann`` are both the brute-force
+matcher, as in the reference. ``--device`` (the port's own) chooses
 where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
 only when a YAML file is read.
 """
@@ -21,7 +23,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 
@@ -32,7 +34,7 @@ class SLAMConfig:
     base_dir: str = "../Dataset"
 
     # front-end (reference defaults: main_revamped.py:200-208)
-    detector: str = "orb"                  # orb | aliked (sift, akaze raise)
+    detector: str = "orb"                  # orb | sift | akaze | aliked
     matcher: str = "bf"                    # bf | flann: no effect, both
                                            # are the brute-force matcher
     use_lightglue: bool = False
@@ -48,6 +50,7 @@ class SLAMConfig:
     kf_min_ratio: float = 0.35
     kf_min_rot_deg: float = 8.0
     kf_cooldown: int = 5
+    kf_thumb_hw: List[int] = field(default_factory=lambda: [640, 360])
 
     # visualization
     no_viz3d: bool = False
@@ -79,6 +82,10 @@ class SLAMConfig:
     gba_max_iters: int = 30
     gba_fix_first: int = 1
     gba_enable: bool = False
+    # pure localisation against a map loaded with --resume: the map is
+    # frozen (no keyframes, triangulation, BA or descriptor-ring updates)
+    # and the first pose comes from kidnapped-robot global relocalisation
+    localize_only: bool = False
 
     # hard-coded reference constants surfaced as config
     bootstrap_min_posdepth: float = 0.90   # main_revamped.py:358-362
@@ -142,6 +149,10 @@ class SLAMConfig:
     prefetch: int = 1                      # threaded frame prefetch depth
     stage_all: bool = False                # fused mode: decode and upload
                                            # every frame before the loop
+    save_state: str = ""                   # serialize pipeline state here at
+                                           # the end (and on SIGINT)
+    resume: str = ""                       # resume pipeline state from this
+                                           # file
 
     @classmethod
     def from_yaml(cls, path: str) -> "SLAMConfig":
@@ -180,6 +191,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_global_reloc", dest="global_reloc",
                    action="store_false")
     p.add_argument("--tri_kf2", action="store_true")
+    p.add_argument("--kf_thumb_hw", type=int, nargs=2,
+                   default=list(d.kf_thumb_hw))
+    p.add_argument("--localize_only", action="store_true",
+                   help="Pure localization against the map loaded with "
+                        "--resume: the map is frozen (no new keyframes, "
+                        "triangulation, BA, loop closure or descriptor-ring "
+                        "updates); the first pose comes from kidnapped-robot "
+                        "global relocalization, then PnP tracking")
+    p.add_argument("--save_state", default=d.save_state,
+                   help="Serialize pipeline state to this file at end of run "
+                        "(and on SIGINT)")
+    p.add_argument("--resume", default=d.resume,
+                   help="Resume pipeline state from a --save_state file")
     for f in dataclasses.fields(SLAMConfig):
         if f.type in ("int", "float", "Optional[int]"):
             p.add_argument(f"--{f.name}", type=float if f.type == "float"

@@ -1,8 +1,9 @@
 """Feature front-end facade (the counterpart of
 ``simpleslam_tpu/core/frontend.py``): one API over the classical ORB
 front-end (``ops/features.py`` + the brute-force matcher of
-``ops/matching.py``) and the learned one (ALIKED keypoints + LightGlue
-matching). SIFT and AKAZE are not ported: they raise.
+``ops/matching.py``), SIFT's float descriptors (``ops/features_sift.py``)
+and AKAZE's binary ones (``ops/features_akaze.py``) with the same
+matcher, and the learned one (ALIKED keypoints + LightGlue matching).
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ def init_feature_pipeline(args, device=None,
     ``detector='aliked'``) selects ALIKED + LightGlue; ``weights`` is an
     optional (aliked_state_dict, lightglue_state_dict) pair; otherwise the
     models restore the trained tree (``models/pipeline.py``). ``orb`` is
-    ORB with cross-checked brute-force matching, for ``--matcher bf`` and
-    ``flann`` alike."""
+    ORB, ``sift`` SIFT and ``akaze`` AKAZE, each with cross-checked
+    brute-force matching (Hamming or L2 by the descriptors' dtype), for
+    ``--matcher bf`` and ``flann`` alike."""
     max_kp = int(getattr(args, "max_features", 4000))
     n_pad = ((max_kp + 127) // 128) * 128
     use_lg = bool(getattr(args, "use_lightglue", False)) or \
@@ -56,14 +58,22 @@ def init_feature_pipeline(args, device=None,
         return det, build_learned_matcher(args, det, state_dict=l_sd)
 
     name = getattr(args, "detector", "orb")
-    if name != "orb":
-        raise NotImplementedError(
-            f"detector {name!r} is not ported yet (ROADMAP A.9); use orb or "
-            "--use_lightglue")
+    if name == "sift":
+        from simpleslam_tpu_torch.ops.features_sift import \
+            sift_detect_and_describe
 
-    def detect(img_gray: torch.Tensor) -> Features:
-        return orb_detect_and_describe(img_gray, max_kp=n_pad,
-                                       fast_thresh=20.0)
+        def detect(img_gray: torch.Tensor) -> Features:
+            return sift_detect_and_describe(img_gray, max_kp=n_pad)
+    elif name == "akaze":
+        from simpleslam_tpu_torch.ops.features_akaze import \
+            akaze_detect_and_describe
+
+        def detect(img_gray: torch.Tensor) -> Features:
+            return akaze_detect_and_describe(img_gray, max_kp=n_pad)
+    else:
+        def detect(img_gray: torch.Tensor) -> Features:
+            return orb_detect_and_describe(img_gray, max_kp=n_pad,
+                                           fast_thresh=20.0)
 
     def match(f0: Features, f1: Features) -> Matches:
         return bf_match(f0, f1, cross_check=True)

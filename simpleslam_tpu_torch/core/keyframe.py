@@ -1,9 +1,10 @@
 """Keyframes + keyframe insertion policy (the counterpart of
 ``simpleslam_tpu/core/keyframe.py``).
 
-``Keyframe.thumb`` stays ``b""``: the reference's thumbnails are cv2 JPEG +
-a native LZ4 codec, and without cv2 its own ``make_thumb`` returns ``b""``
-too. Thumbnails wait for the viz slice.
+``Keyframe.thumb`` is the reference's thumbnail: the frame resized to
+``cfg.kf_thumb_hw``, JPEG at quality 70, then the port's LZ4 container
+(``native.py``). cv2 is imported only there; without it the thumbnail is
+``b""`` (and :func:`decode_thumb` gives None), as in the reference.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from simpleslam_tpu_torch import native
 from simpleslam_tpu_torch.core.types import Features, Matches
 
 
@@ -39,8 +41,32 @@ class Keyframe:
 
 
 def make_thumb(bgr, hw: Tuple[int, int] = (640, 360)) -> bytes:
-    """Keyframe thumbnail; empty until the viz slice is ported."""
-    return b""
+    """Resize to ``hw`` (width, height), JPEG q70, LZ4 (the reference's
+    bytes); ``b""`` without cv2 or when cv2 cannot encode the frame."""
+    try:
+        import cv2
+    except ImportError:
+        return b""
+    img = bgr.cpu().numpy() if torch.is_tensor(bgr) else np.asarray(bgr)
+    try:
+        th = cv2.resize(img, tuple(hw))
+        ok, enc = cv2.imencode(".jpg", th, [int(cv2.IMWRITE_JPEG_QUALITY), 70])
+    except cv2.error:
+        return b""
+    return native.compress(enc.tobytes()) if ok else b""
+
+
+def decode_thumb(blob: bytes) -> Optional[np.ndarray]:
+    """The inverse of :func:`make_thumb`: a BGR uint8 array, or None for an
+    empty thumbnail or without cv2."""
+    if not blob:
+        return None
+    try:
+        import cv2
+    except ImportError:
+        return None
+    jpeg = native.decompress(blob)
+    return cv2.imdecode(np.frombuffer(jpeg, np.uint8), cv2.IMREAD_COLOR)
 
 
 def rot_deg_between(Tcw_prev: np.ndarray, Tcw_curr: np.ndarray) -> float:
@@ -113,8 +139,10 @@ def select_keyframe(cfg, frame_no: int, img2, feats2: Features,
                        kf_max_disp=cfg.kf_max_disp,
                        kf_min_rot_deg=cfg.kf_min_rot_deg,
                        last_kf_frame_no=last_kf_frame_no):
+        thumb = (make_thumb(img2, tuple(cfg.kf_thumb_hw))
+                 if img2 is not None else b"")
         kfs.append(Keyframe(len(kfs), frame_no, path, feats2,
                             np.asarray(Tcw_curr) if Tcw_curr is not None
-                            else np.eye(4), make_thumb(img2)))
+                            else np.eye(4), thumb))
         last_kf_frame_no = frame_no
     return kfs, last_kf_frame_no

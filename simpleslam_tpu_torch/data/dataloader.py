@@ -368,7 +368,9 @@ class Sequence:
 
 class Prefetcher:
     """Decode (and, with ``transform``, e.g. upload) up to ``depth`` frames
-    ahead of the consumer on a worker thread.
+    ahead of the consumer on a worker thread, while a native readahead
+    thread (``native.FilePrefetcher``) pulls the upcoming frame files
+    through the page cache.
 
     Usage: ``for idx, frame in Prefetcher(seq, transform=to_device): ...``
     """
@@ -384,6 +386,11 @@ class Prefetcher:
         self.transform = transform
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._stop = False
+        paths = [f for f in seq.frames[self.start:] if isinstance(f, str)]
+        self._native = None
+        if paths:
+            from simpleslam_tpu_torch.native import FilePrefetcher
+            self._native = FilePrefetcher(paths)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
@@ -412,6 +419,8 @@ class Prefetcher:
 
     def close(self) -> None:
         self._stop = True
+        if self._native is not None:
+            self._native.stop()
         # drain so the worker can exit
         try:
             while True:

@@ -133,6 +133,22 @@ def _shifted(img: torch.Tensor, offsets) -> torch.Tensor:
                         for dx, dy in offsets])
 
 
+def _shift2d(img: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """``out[..., y, x] = img[..., y + dy, x + dx]``, zero padded (the
+    reference's ``_shift2d``, over any leading dimensions)."""
+    H, W = img.shape[-2:]
+    r = max(abs(dx), abs(dy))
+    p = F.pad(img, (r, r, r, r))
+    return p[..., r + dy:r + dy + H, r + dx:r + dx + W]
+
+
+def _grad(img: torch.Tensor):
+    """Central-difference gradients (gx, gy), zero padded."""
+    gx = 0.5 * (_shift2d(img, 1, 0) - _shift2d(img, -1, 0))
+    gy = 0.5 * (_shift2d(img, 0, 1) - _shift2d(img, 0, -1))
+    return gx, gy
+
+
 def _conv_rows(x4: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     """Correlate along H with a 1-D kernel, zero padded to the same size."""
     k = kern.shape[0]
@@ -269,6 +285,19 @@ def _top_k_stable(x: torch.Tensor, k: int):
     return v[:k], i[:k]
 
 
+def pad_rows(n: int, kpts, desc, top_v, valid):
+    """The final top-k's rows padded to ``n``: zero keypoints and
+    descriptors, ``-inf`` scores, invalid."""
+    pad = n - kpts.shape[0]
+    if pad <= 0:
+        return kpts, desc, top_v, valid
+
+    def padded(a, fill=0):
+        return torch.cat([a, torch.full((pad,) + a.shape[1:], fill,
+                                        dtype=a.dtype, device=a.device)])
+    return padded(kpts), padded(desc), padded(top_v, -math.inf), padded(valid)
+
+
 @highest_precision()
 def orb_detect_and_describe(img: torch.Tensor, max_kp: int = 1024,
                             n_levels: int = 8, scale: float = 1.2,
@@ -320,14 +349,7 @@ def orb_detect_and_describe(img: torch.Tensor, max_kp: int = 1024,
     top_v, top_i = _top_k_stable(sc, min(max_kp, sc.shape[0]))
     valid = torch.isfinite(top_v)
     kpts = torch.stack([xs[top_i], ys[top_i]], dim=-1)
-    desc = ds[top_i]
-    pad = max_kp - kpts.shape[0]
-    if pad > 0:
-        def padded(a, fill=0):
-            return torch.cat([a, torch.full((pad,) + a.shape[1:], fill,
-                                            dtype=a.dtype, device=dev)])
-        kpts, desc, valid = padded(kpts), padded(desc), padded(valid)
-        top_v = padded(top_v, -math.inf)
+    kpts, desc, top_v, valid = pad_rows(max_kp, kpts, ds[top_i], top_v, valid)
     return Features(kpts=kpts, desc=desc,
                     scores=torch.where(valid, top_v, torch.zeros_like(top_v)),
                     valid=valid)

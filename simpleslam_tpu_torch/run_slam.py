@@ -10,10 +10,13 @@ fallback) -> keyframe policy -> KF-pair triangulation -> local bundle
 adjustment -> loop closure (``--loop_closure``: on each new keyframe, or in
 the fused loop at periodic syncs, with the host-assisted rescue) -> global
 BA (``--gba_enable``: at the ``gba_every`` keyframe milestone and after an
-accepted closure). Tensors live on the system's device; the map and the
-decisions live on the host. Not ported yet (they raise): lens
-undistortion, resumed and saved state, localisation-only mode and the live
-windows (``run`` needs ``--headless``).
+accepted closure). ``--save_state`` writes the map, trajectory and
+keyframes at the end of a run (``utils/serialize.py``), ``--resume``
+continues from such a file, and ``--resume --localize_only`` tracks against
+its map frozen, the first pose from global relocalisation. Tensors live on
+the system's device; the map and the decisions live on the host. Not ported
+yet (they raise): lens undistortion and the live windows (``run`` needs
+``--headless``).
 
 Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
           --base_dir <dir> --headless --no_viz3d [--fused] [--device cpu]
@@ -21,6 +24,7 @@ Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
 from __future__ import annotations
 
 import logging
+import signal
 import time
 from dataclasses import dataclass, field, replace
 from typing import List, Mapping, Optional, Sequence, Tuple
@@ -231,10 +235,13 @@ class SLAMSystem:
         self.world_map.add_pose(T0, is_keyframe=True)
         self.world_map.add_pose(T1, is_keyframe=True)
         self.frame_ids.extend([self.bs.ref_idx, frame_idx])
+        hw = tuple(cfg.kf_thumb_hw)
+        thumb0 = (make_thumb(self.bs.ref_img, hw)
+                  if self.bs.ref_img is not None else b"")
+        thumb1 = make_thumb(img, hw) if img is not None else b""
         self.kfs.append(Keyframe(0, self.bs.ref_idx, "", self.bs.ref_feats,
-                                 T0, make_thumb(self.bs.ref_img)))
-        self.kfs.append(Keyframe(1, frame_idx, "", feats, T1,
-                                 make_thumb(img)))
+                                 T0, thumb0))
+        self.kfs.append(Keyframe(1, frame_idx, "", feats, T1, thumb1))
         self.last_kf_frame_no = frame_idx
         self.initialised = True
         self.bs.clear()
@@ -300,7 +307,8 @@ class SLAMSystem:
             self.world_map.add_pose(T_est.cpu().numpy().astype(np.float64),
                                     is_keyframe=False)
             self.frame_ids.append(frame_idx)
-            self._refresh_rings(snap, assoc, inl, feats)
+            if not cfg.localize_only:   # rings are map state: frozen there
+                self._refresh_rings(snap, assoc, inl, feats)
             tracking_lost = False
         else:
             logger.info("[TRACK] %s", why)
@@ -492,8 +500,9 @@ class SLAMSystem:
     def run_global_ba(self) -> bool:
         """Full-map Schur-LM BA (``--gba_enable``). It writes back keyframe
         poses only, so each trailing non-keyframe pose keeps its relative
-        pose to the last keyframe: B_post = B_pre @ A_pre^-1 @ A_post."""
-        if len(self.kfs) < 2:
+        pose to the last keyframe: B_post = B_pre @ A_pre^-1 @ A_post.
+        Never with ``--localize_only`` (the map is frozen)."""
+        if len(self.kfs) < 2 or self.cfg.localize_only:
             return False
         cfg = self.cfg
         ki = self.world_map.keyframe_indices
@@ -525,13 +534,21 @@ class SLAMSystem:
     def process_frame(self, frame_idx: int, img,
                       prev_feats: Optional[Features]) -> Features:
         """One frame of the pipeline; returns this frame's features (the
-        caller passes them back as ``prev_feats`` for the next frame)."""
+        caller passes them back as ``prev_feats`` for the next frame). With
+        ``--localize_only`` no keyframe is made, and until the first pose
+        each frame only tries global relocalisation."""
         with self.timer.stage("preprocess"):
             img = self.preprocess(img)
         if self.img_hw is None:
             self.img_hw = tuple(np.shape(img)[:2])
         with self.timer.stage("extract"):
             feats = self.extract(img)
+        if self.cfg.localize_only and not self.world_map.poses:
+            # a frozen map starts kidnapped: the first pose comes from
+            # place recognition, not a bootstrap or a motion model
+            with self.timer.stage("greloc"):
+                self._global_relocalize(frame_idx, feats)
+            return feats
         if prev_feats is None:
             if not self.initialised:
                 self.bs.seed(frame_idx, feats, img)
@@ -547,7 +564,8 @@ class SLAMSystem:
         with self.timer.stage("track"):
             self._track(frame_idx, feats, prev_feats, matches_prev)
         with self.timer.stage("keyframe"):
-            self._maybe_keyframe(frame_idx, img, feats)
+            if not self.cfg.localize_only:   # the map is frozen there
+                self._maybe_keyframe(frame_idx, img, feats)
         # the global-BA milestone, keyed on the keyframe count with a dedup
         # so frames that add no keyframe never re-solve an unchanged map
         if self.cfg.gba_every and self.cfg.gba_enable and self.initialised:
@@ -861,10 +879,54 @@ def _run_fused_over(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem,
 _NOT_PORTED = (
     ("headless", False, "live windows (the non-headless run) wait for viz, "
                         "ROADMAP A.11; pass --headless"),
-    ("resume", True, "resuming a saved state waits for ROADMAP A.4"),
-    ("save_state", True, "saving the state waits for ROADMAP A.4"),
-    ("localize_only", True, "localisation-only mode waits for ROADMAP A.4"),
 )
+
+
+def _check_state_flags(cfg: SLAMConfig) -> None:
+    """The reference's refusals of flag combinations (ValueError)."""
+    if cfg.localize_only and not cfg.resume:
+        raise ValueError("--localize_only needs a map: pass --resume <state>")
+    if cfg.localize_only and cfg.fused:
+        raise ValueError("--localize_only runs the host driver (drop --fused)")
+    if cfg.localize_only and cfg.save_state:
+        # the run's poses are the localisation trajectory while the
+        # keyframes keep the mapping run's frame indices: saved together
+        # they would corrupt the keyframe -> frame mapping of a later resume
+        raise ValueError("--localize_only does not modify the map; "
+                         "drop --save_state (the resumed state is canonical)")
+
+
+def _resume(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem):
+    """Load ``cfg.resume`` into ``system``: -> (prev_feats, start_idx).
+    Mapping continues at the frame after the saved ``frame_ids[-1]`` with
+    that frame's features re-extracted; ``--localize_only`` keeps the
+    landmarks and keyframes, drops the saved trajectory and starts at
+    frame 0, kidnapped."""
+    from simpleslam_tpu_torch.utils.serialize import load_state
+    m, kfs, _cfgd, frame_ids = load_state(cfg.resume, device=system.device)
+    system.world_map = m
+    system.kfs = kfs
+    system.frame_ids = frame_ids
+    system.initialised = len(kfs) >= 2
+    system.last_kf_frame_no = kfs[-1].frame_idx if kfs else -999
+    if cfg.localize_only:
+        if not kfs:
+            raise ValueError("resumed state has no keyframes to "
+                             "localize against")
+        m.poses = []
+        m.keyframe_indices = []
+        system.frame_ids = []
+        system.initialised = True
+        prev_feats = system.process_frame(0, seq.frame(0), None)
+        logger.info("localize-only against %s: %d KFs, %d landmarks "
+                    "(map frozen)", cfg.resume, len(kfs), len(m))
+        return prev_feats, 1
+    last = frame_ids[-1] if frame_ids else 0
+    prev_feats = system.extract(system.preprocess(seq.frame(last)))
+    logger.info("resumed from %s: %d poses, %d KFs, %d landmarks; "
+                "continuing at frame %d", cfg.resume, len(m.poses),
+                len(kfs), len(m), last + 1)
+    return prev_feats, last + 1
 
 
 def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
@@ -874,10 +936,14 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     one), "cpu" the CPU. ``key``: the randomness source (``utils/rng.py``;
     default a ``TorchKey`` of ``cfg.seed``). Logs the ATE line (against the dataset's ground
     truth), ``done: ...`` and the per-stage breakdown, and tries to save
-    ``trajectory_<dataset>.png`` (needs matplotlib; a warning without)."""
+    ``trajectory_<dataset>.png`` (needs matplotlib; a warning without).
+    ``cfg.resume``: start from a saved state (:func:`_resume`);
+    ``cfg.save_state``: write the state at the end, and stop after the
+    frame in flight on SIGINT (the host loop)."""
     for name, bad, why in _NOT_PORTED:
         if bool(getattr(cfg, name, not bad)) == bad:
             raise NotImplementedError(why)
+    _check_state_flags(cfg)
     device = resolve_device(device)
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(name)s: %(message)s")
@@ -904,29 +970,50 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
 
     t_start = time.perf_counter()
     n = len(seq)
-    start_idx = 1
-    prev_feats = system.process_frame(0, img0, None)
-    frame_idx = 0
-    if cfg.fused:
-        # the host bootstraps, then the fused device loop takes the rest
+    if cfg.resume:
+        prev_feats, start_idx = _resume(cfg, seq, system)
+    else:
+        prev_feats, start_idx = system.process_frame(0, img0, None), 1
+
+    # SIGINT: finish the frame in flight, save the state, then report
+    stop = []
+
+    def on_sigint(_sig, _frame):
+        stop.append(True)
+        logger.warning("SIGINT: stopping after this frame; state -> %s",
+                       cfg.save_state)
+    old_handler = (signal.signal(signal.SIGINT, on_sigint)
+                   if cfg.save_state else None)
+
+    try:
+        frame_idx = start_idx - 1
+        if cfg.fused:
+            # the host bootstraps, then the fused device loop takes the rest
+            if not system.initialised:
+                for frame_idx in range(start_idx, n):
+                    with system.timer.stage("frame_load"):
+                        img = seq.frame(frame_idx)
+                    prev_feats = system.process_frame(frame_idx, img,
+                                                      prev_feats)
+                    if system.initialised:
+                        break
+                start_idx = frame_idx + 1
+            if system.initialised and start_idx < n:
+                _run_fused_over(cfg, seq, system, prev_feats, start_idx)
+            if system.initialised and system.world_map.poses:
+                push_poses(frame_idx)
+            start_idx = n
         for frame_idx in range(start_idx, n):
+            if stop:
+                break
             with system.timer.stage("frame_load"):
                 img = seq.frame(frame_idx)
             prev_feats = system.process_frame(frame_idx, img, prev_feats)
-            if system.initialised:
-                break
-        start_idx = frame_idx + 1
-        if system.initialised and start_idx < n:
-            _run_fused_over(cfg, seq, system, prev_feats, start_idx)
-        if system.initialised and system.world_map.poses:
-            push_poses(frame_idx)
-        start_idx = n
-    for frame_idx in range(start_idx, n):
-        with system.timer.stage("frame_load"):
-            img = seq.frame(frame_idx)
-        prev_feats = system.process_frame(frame_idx, img, prev_feats)
-        if system.initialised and system.world_map.poses:
-            push_poses(frame_idx)
+            if system.initialised and system.world_map.poses:
+                push_poses(frame_idx)
+    finally:
+        if old_handler is not None:
+            signal.signal(signal.SIGINT, old_handler)
 
     dt = time.perf_counter() - t_start
     res = SLAMResult(
@@ -953,6 +1040,15 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
         logger.info("saved %s", out_png)
     except Exception as e:
         logger.warning("could not save trajectory png: %s", e)
+    if cfg.save_state:
+        try:
+            from simpleslam_tpu_torch.utils.serialize import save_state
+            save_state(cfg.save_state, system.world_map, system.kfs, cfg,
+                       system.frame_ids)
+            logger.info("saved pipeline state to %s", cfg.save_state)
+        except Exception:
+            # the run's result still stands (the reference's rule)
+            logger.exception("could not save state to %s", cfg.save_state)
 
     if gt44 is not None and len(res.poses_cw) >= 2 and res.frame_ids:
         est = np.stack(res.poses_cw)

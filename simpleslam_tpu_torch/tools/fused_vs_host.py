@@ -27,7 +27,9 @@ per RANSAC seed and draw source (the device's and the CPU's), the host and
 
 The variants (``VARIANTS``) separate what the fused loop's ATE at the
 CLI's defaults depends on: the BA window's point slice, the keypoint
-budget, the map capacity, the LM iterations.
+budget, the map capacity, the LM iterations; ``sift`` and ``akaze`` are
+the other detectors (``--variants sift,akaze --variant_seeds 0,1,2,3``
+for their spread over RANSAC seeds).
 """
 from __future__ import annotations
 
@@ -121,7 +123,17 @@ VARIANTS = (
     ("learned", ["--use_lightglue", "--tri_kf2"]),
     ("learned_ba_whole_map", ["--use_lightglue", "--tri_kf2",
                               "--fused_ba_points", "32768"]),
+    ("sift", ["--detector", "sift"]),
+    ("akaze", ["--detector", "akaze"]),
 )
+
+
+def front_flags(flags: list) -> list:
+    """The flags of ``flags`` that choose the front-end (the host run a
+    fused variant is compared with runs these alone)."""
+    return [f for i, f in enumerate(flags)
+            if f in ("--use_lightglue", "--tri_kf2", "--detector")
+            or (i and flags[i - 1] == "--detector")]
 
 
 class HostDrawKey:
@@ -251,9 +263,9 @@ def main(argv=None) -> int:
                    help="default: the GPU; 'cpu' for the CPU")
     p.add_argument("--out", default=None, help="also append the lines here")
     p.add_argument("--bootstrap", action="store_true",
-                   help="only the bootstrap's two-view attempts of the ORB "
-                        "and learned commands per seed, with the device's "
-                        "and the CPU's RANSAC draws")
+                   help="only the bootstrap's two-view attempts of the "
+                        "chosen variants' front-ends per seed, with the "
+                        "device's and the CPU's RANSAC draws")
     p.add_argument("--lap", action="store_true",
                    help="the loop-closure lap's host and fused runs per "
                         "seed instead (LAP_ARGV), with the device's and "
@@ -292,7 +304,11 @@ def _runs(a, chosen, seeds, variant_seeds, out) -> None:
         if a.bootstrap:
             from simpleslam_tpu_torch.data import Sequence
             seq = Sequence.load(parse_config(readme))
-            for front in ([], ["--use_lightglue"]):
+            fronts = []
+            for _name, flags in chosen:
+                if front_flags(flags) not in fronts:
+                    fronts.append(front_flags(flags))
+            for front in fronts:
                 for seed in seeds:
                     for host_draws in (False, True):
                         _emit(out, dict(
@@ -305,7 +321,7 @@ def _runs(a, chosen, seeds, variant_seeds, out) -> None:
         hosts = {}
         for name, flags in chosen:
             plain = name in ("orb", "learned")
-            front = [f for f in flags if f in ("--use_lightglue", "--tri_kf2")]
+            front = front_flags(flags)
             for seed in (seeds if plain else variant_seeds):
                 key = (tuple(front), seed)
                 if key not in hosts:

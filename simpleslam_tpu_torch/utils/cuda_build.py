@@ -6,7 +6,9 @@ A library is built at first use from the source in ``csrc/`` into
 of the source and the flags, so an edited source is rebuilt and an
 unchanged one is reused. The suffix picks the toolchain: ``.cu`` sources go
 through ``nvcc`` (seconds for a plain-C-interface source; nothing here
-includes PyTorch's headers), ``.c`` sources through the host's C compiler.
+includes PyTorch's headers), ``.c`` sources through the host's C compiler
+and ``.cpp`` sources through its C++ compiler (the one ``nvcc`` drives on a
+CUDA machine), with ``-pthread``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 CC_FLAGS = ["-std=c99", "-O2", "-shared", "-fPIC"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -48,8 +51,18 @@ def cc_path() -> str:
     raise RuntimeError("no C compiler (cc, gcc or clang) found on PATH")
 
 
+def cxx_path() -> str:
+    for name in ("c++", "g++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (c++, g++ or clang++) found on PATH")
+
+
 def _flags(source: str) -> List[str]:
-    return NVCC_FLAGS if source.endswith(".cu") else CC_FLAGS
+    if source.endswith(".cu"):
+        return NVCC_FLAGS
+    return CXX_FLAGS if source.endswith(".cpp") else CC_FLAGS
 
 
 def library_path(source: str) -> str:
@@ -73,6 +86,8 @@ def build(source: str) -> str:
     os.close(fd)
     if source.endswith(".cu"):
         cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v"]
+    elif source.endswith(".cpp"):
+        cmd = [cxx_path(), *CXX_FLAGS]
     else:
         cmd = [cc_path(), *CC_FLAGS]
     cmd += ["-o", tmp, os.path.join(CSRC, source)]

@@ -8,8 +8,9 @@ the port's back half to the reference's frame by frame, is in
   bounds, and its ``--fused`` run meets ``test_fused.py``'s
   host-against-fused bounds on that test's fixture (the chaotic part over
   RANSAC seeds, see the test);
-* ``main`` returns 0, a run without ``--device`` needs CUDA, and the paths
-  not ported raise naming their roadmap item.
+* ``main`` returns 0, a run without ``--device`` needs CUDA, the path not
+  ported (live windows) raises naming its roadmap item, and the saved-state
+  flags are refused or run as in the reference.
 """
 import os
 
@@ -161,20 +162,54 @@ def test_main_returns_zero_and_needs_a_device(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change, item", [
     (dict(headless=False), "A.11"),
-    (dict(headless=False, loop_closure=True, gba_enable=True), "A.11"),
-    (dict(resume="state.npz"), "A.4"),
-    (dict(save_state="state.npz"), "A.4"),
-    (dict(localize_only=True), "A.4"),
-    (dict(localize_only=True, loop_closure=True, fused=True), "A.4")])
+    (dict(headless=False, loop_closure=True, gba_enable=True), "A.11")])
 def test_paths_not_ported_raise(change, item):
-    """Live windows, saved and resumed state and localisation-only mode
-    raise naming their roadmap item, with loop closure and global BA on
-    too (those two are ported)."""
+    """Live windows raise naming their roadmap item, with loop closure and
+    global BA on too (those two are ported)."""
     cfg = SLAMConfig(headless=True)
     for k, v in change.items():
         setattr(cfg, k, v)
     with pytest.raises(NotImplementedError, match=item):
         run_slam.run(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change, error", [
+    (dict(localize_only=True), "resume"),
+    (dict(localize_only=True, resume="state.npz", fused=True,
+          loop_closure=True), "fused"),
+    (dict(localize_only=True, resume="state.npz",
+          save_state="again.npz"), "save_state"),
+    (dict(resume="state.npz"), None)])
+def test_state_flags_behave_as_reference(change, error, tmp_path,
+                                         monkeypatch):
+    """The reference's refusals of ``--localize_only`` without
+    ``--resume``, with ``--fused`` and with ``--save_state`` (ValueError,
+    before any frame is read), and a ``--resume`` that runs: a 6-frame map
+    saved, then resumed over the 8-frame sequence it starts."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", "kitti", "--headless", "--no_viz3d",
+            "--max_features", "256", "--map_capacity", "2048"]
+    if error is not None:
+        cfg = parse_config(argv + ["--base_dir", str(tmp_path / "none")])
+        for k, v in change.items():
+            setattr(cfg, k, v)
+        with pytest.raises(ValueError, match=error):
+            run_slam.run(cfg, device="cpu")
+        return
+    bases = {}
+    for n in (6, 8):
+        bases[n] = str(tmp_path / f"seq{n}")
+        generate_kitti_sequence(bases[n], n_frames=n, seed=2, hw=(128, 256))
+    state = str(tmp_path / "state.npz")
+    first = run_slam.run(parse_config(argv + ["--base_dir", bases[6],
+                                              "--save_state", state]),
+                         device="cpu")
+    assert os.path.exists(state) and first.frame_ids[-1] == 5
+    res = run_slam.run(parse_config(argv + ["--base_dir", bases[8],
+                                            "--resume", state]),
+                       device="cpu")
+    assert res.frame_ids[:len(first.frame_ids)] == first.frame_ids
+    assert res.frame_ids[len(first.frame_ids):] == [6, 7]
 
 
 if __name__ == "__main__":

@@ -357,8 +357,9 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     with pytest.raises(NotImplementedError, match="undistortion"):
         SLAMSystem(SLAMConfig(use_lightglue=True), K,
                    D=np.array([0.1, 0.0, 0.0, 0.0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="sift"):
-        SLAMSystem(SLAMConfig(detector="sift"), K, device="cpu")
+    for name in ("sift", "akaze"):
+        system = SLAMSystem(SLAMConfig(detector=name), K, device="cpu")
+        assert system.detector.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("argv", [
@@ -388,6 +389,10 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     ["--dataset", "kitti", "--base_dir", "/data/synth", "--headless",
      "--no_viz3d", "--fused", "--prefetch", "2", "--stage_all", "--matcher",
      "flann"],
+    # saved state, localisation-only, thumbnails and the detectors
+    ["--resume", "a.npz", "--save_state", "b.npz", "--localize_only",
+     "--kf_thumb_hw", "320", "180", "--detector", "sift"],
+    ["--detector", "akaze"],
 ])
 def test_config_matches_reference(argv):
     """Every field of the port's config parses as the reference's field of
@@ -400,12 +405,12 @@ def test_config_matches_reference(argv):
         f.name: getattr(ref, f.name) for f in dataclasses.fields(port)}
 
 
-@pytest.mark.parametrize("argv", [["--resume", "x"], ["--fps", "5"],
-                                  ["--kf_thumb_hw", "320", "180"]])
+@pytest.mark.parametrize("argv", [["--trace_dir", "x"], ["--fps", "5"],
+                                  ["--merge_radius", "0.2"], ["--viz_ba"]])
 def test_config_rejects_flags_of_unported_paths(argv):
-    """Resuming a saved state, the keyframe thumbnails' size and ``--fps``
-    (read by nothing in the reference either) have no reader in the port:
-    the parser refuses them instead of ignoring them."""
+    """The profiler trace, the BA overlay windows and the landmark merge
+    radius have no reader in the port yet, and ``--fps`` none in either
+    package: the parser refuses them instead of ignoring them."""
     from simpleslam_tpu.config import parse_config as jparse
     from simpleslam_tpu_torch.config import parse_config
     jparse(argv)
