@@ -149,7 +149,37 @@ Phases:
               and the keyframe thumbnails cost: the fused ORB run over
               all frames with and without the readahead, and one
               thumbnail's milliseconds;
-  10. kernels one JSON line, one entry per kernel.
+  10. image_geometry  the lens, calibration, KLT, stereo and the legacy
+              drivers (plain PyTorch; no kernel of their own): (a) phase
+              5b's 40 corridor frames seen through tests/test_calibrate.py's
+              lens (LENS_D; pinhole renders widened by LENS_MARGIN on the
+              card, distorted on the host by this script's float64 inverse
+              of the lens model): the new camera matrix and the maps built
+              on the card against the CPU, frame 0's uint8 remap within 1
+              level of the CPU's (the share of pixels differing), the map
+              build's and one remap's ms; then phase 5b's main path on the
+              distorted frames (``SLAMSystem`` with ``D``: the host
+              bootstrap undistorts each raw frame, the fused step each
+              grey frame) with frames/s, held to the JAX package's CPU
+              reading (LENS_JAX_CPU: ATE at most max(2x, 0.05 m), lost at
+              most its count, keyframes within 2); (b) ``calibrate_camera``
+              on the card, 8 views with 0.3 px noise through the lens,
+              tests/test_calibrate.py's bounds and K within CALIB_K_TOL of
+              the CPU's, seconds; (c) ``fb_track`` from frame 0 to 1 of
+              (a)'s undistorted frames on frame 0's ORB keypoints (2048):
+              status and points against the CPU, ms and device kernels per
+              call; (d) a stereo pair 0.54 m apart at 376x1232:
+              ``disparity_block_match`` (64 disparities) against the CPU by
+              the share of pixels whose validity agrees and the median
+              disparity gap, its ms and peak memory; ``StereoTracker``
+              (ORB) over STEREO_FRAMES pairs, the reference test's metric
+              step check; (e) ``python -m
+              simpleslam_tpu_torch.legacy.run_ef`` and ``run_klt`` in two
+              subprocesses over phase 7's corridor: every frame posed and
+              finite, the updates and dead-reckoned frames within
+              LEGACY_SLACK of the JAX package's spread over RANSAC seeds
+              0-3 (LEGACY_JAX_CPU), frames/s, KLT's reseeds;
+  11. kernels one JSON line, one entry per kernel.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -160,6 +190,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -495,13 +526,17 @@ def oracle_ok(res: dict) -> bool:
 # --------------------------------------------------------------------------- #
 
 def run_main_path(device, small: bool = False, n_frames: int = 40,
-                  weights=None, timed_rounds: int = 0, seed: int = 0) -> dict:
+                  weights=None, timed_rounds: int = 0, seed: int = 0,
+                  lens=None) -> dict:
     """Phase 5b: ``bench.py``'s fused main path on ``device``. ``weights``:
     (aliked, lightglue) state_dicts for ``SLAMSystem``; ``seed``: the RANSAC
     seed (``--seed``). With
     ``timed_rounds`` (CUDA only) the fused loop is also timed that many
     times from a fresh copy of the post-bootstrap state, profiled once for
-    the device's idle share and run once counting synchronising calls."""
+    the device's idle share and run once counting synchronising calls.
+    ``lens``: (frames, T_wc, D) to run on those frames (uint8, on the
+    device) through a lens with distortion ``D`` instead of the pinhole
+    corridor (phase 10 (a))."""
     import torch
     from simpleslam_tpu_torch.config import parse_config
     from simpleslam_tpu_torch.ops import attention
@@ -513,13 +548,17 @@ def run_main_path(device, small: bool = False, n_frames: int = 40,
     hw, K, argv = bench_setup(small)
     argv = argv + ["--seed", str(seed)]
     t0 = time.time()
-    frames, T_wc = render_sequence("corridor", 0, hw, K, n_frames, speed=0.5,
-                                   yaw_rate_deg=0.3, device=device)
+    if lens is None:
+        frames, T_wc = render_sequence("corridor", 0, hw, K, n_frames,
+                                       speed=0.5, yaw_rate_deg=0.3,
+                                       device=device)
+    else:
+        frames, T_wc, _D = lens
     res = {"frames": n_frames, "hw": list(hw), "argv": argv,
            "render_s": time.time() - t0}
     cfg = parse_config(argv)
-    system = SLAMSystem(cfg, K, None, img_hw=hw, device=device,
-                        weights=weights)
+    system = SLAMSystem(cfg, K, None if lens is None else lens[2],
+                        img_hw=hw, device=device, weights=weights)
     kernel = attention.cuda_masked_attention
     kernel.launches = 0                     # the main path's run starts here
     t0 = time.time()
@@ -2681,6 +2720,426 @@ def run_detector_state_phase(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: image geometry (undistortion, calibration, KLT, stereo, legacy)
+# --------------------------------------------------------------------------- #
+
+# tests/test_calibrate.py's lens (k1, k2, p1, p2, k3)
+LENS_D = np.array([-0.25, 0.08, 1e-3, -5e-4, 0.0])
+# pixels of pinhole render beyond each side of phase 5b's 376x1232 frame that
+# the lens needs (its corners see 135 px out horizontally, 45 vertically)
+LENS_MARGIN = 160
+
+
+def undistort_normalized64(xy_d: np.ndarray, D, iters: int = 20
+                           ) -> np.ndarray:
+    """The ideal normalised coordinates that the Brown-Conrady model ``D``
+    maps to ``xy_d`` (..., 2): Newton's method in float64 with the model's
+    analytic Jacobian, independent of ``ops/projection.py``."""
+    k1, k2, p1, p2, k3 = np.pad(np.asarray(D, np.float64),
+                                (0, 5))[:5]
+    xy = np.array(xy_d, np.float64)
+    for _ in range(iters):
+        x, y = xy[..., 0], xy[..., 1]
+        r2 = x * x + y * y
+        rad = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        drad = k1 + r2 * (2 * k2 + 3 * k3 * r2)
+        fx = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x) - xy_d[..., 0]
+        fy = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y - xy_d[..., 1]
+        a = rad + 2 * x * x * drad + 2 * p1 * y + 6 * p2 * x
+        b = 2 * x * y * drad + 2 * p1 * x + 2 * p2 * y
+        d = rad + 2 * y * y * drad + 6 * p1 * y + 2 * p2 * x
+        det = a * d - b * b
+        xy = xy - np.stack([(d * fx - b * fy) / det,
+                            (a * fy - b * fx) / det], -1)
+    return xy
+
+
+def lens_map(K: np.ndarray, D, hw, margin: int):
+    """For each pixel of an (H, W) frame seen through a lens with
+    intrinsics ``K`` and distortion ``D``, the (x, y) it shows in an ideal
+    pinhole render of ``K`` widened by ``margin`` pixels on every side
+    (:func:`pinhole_canvas`)."""
+    H, W = hw
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    xy_d = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]], -1)
+    xy = undistort_normalized64(xy_d, D)
+    return (xy[..., 0] * K[0, 0] + K[0, 2] + margin,
+            xy[..., 1] * K[1, 1] + K[1, 2] + margin)
+
+
+def pinhole_canvas(K: np.ndarray, hw, margin: int):
+    """(hw, K) of the widened pinhole render that :func:`lens_map`
+    samples."""
+    Kc = np.array(K, np.float64)
+    Kc[0, 2] += margin
+    Kc[1, 2] += margin
+    return (hw[0] + 2 * margin, hw[1] + 2 * margin), Kc
+
+
+def distort_frame(img: np.ndarray, mapx: np.ndarray, mapy: np.ndarray
+                  ) -> np.ndarray:
+    """``img`` (a widened pinhole render, uint8) sampled bilinearly in
+    float64 at ``lens_map``'s coordinates, rounded to uint8."""
+    img = np.asarray(img, np.float64)
+    H, W = img.shape[:2]
+    x0 = np.clip(np.floor(mapx).astype(np.int64), 0, W - 2)
+    y0 = np.clip(np.floor(mapy).astype(np.int64), 0, H - 2)
+    fx = np.clip(mapx - x0, 0.0, 1.0)
+    fy = np.clip(mapy - y0, 0.0, 1.0)
+    if img.ndim == 3:
+        fx, fy = fx[..., None], fy[..., None]
+    out = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+           + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+# The JAX package's reading of phase 10 (a)'s main path on the CPU (the
+# same lens, frames, argv and seed; ``JAX_PLATFORMS=cpu python
+# tests/test_torch_undistort.py --frames 40``): bootstrap at frame 1, new
+# camera matrix fx 579.762, fy 694.507.
+LENS_JAX_CPU = {"ate_m": 0.0172544284228106, "keyframes": 8, "lost": 0}
+# (c) KLT, (d) block matching: the card against the port on the CPU
+KLT_STATUS_AGREE_MIN = 0.99
+KLT_POINT_TOL = 0.01          # px, where both report the point good
+STEREO_VALID_AGREE_MIN = 0.99
+STEREO_DISP_MEDIAN_TOL = 0.01  # px, median |disparity gap| where both valid
+STEREO_BASELINE = 0.54
+STEREO_FRAMES = 10
+# (b) tests/test_calibrate.py::test_calibrate_with_distortion_and_noise's
+# case; the card's K against the port's CPU result on the same corners
+CALIB_K = np.array([[580.0, 0, 310], [0, 585.0, 250], [0, 0, 1]])
+CALIB_K_TOL = 0.05
+# (e) The JAX package's legacy trackers over phase 7's corridor (tools.synth
+# defaults, 40 frames at 370x1226) for RANSAC seeds 0-3 (``JAX_PLATFORMS=cpu
+# PYTHONPATH=. python tests/test_torch_legacy.py --frames 40 --seeds
+# 0,1,2,3``): the least rotation-only plus full updates and the most
+# dead-reckoned frames; the card may do 2 worse. Every seed read 39 full
+# updates, no rotation-only and none dead-reckoned in both trackers, and
+# one KLT reseed (the first seeding).
+LEGACY_JAX_CPU = {"run_ef": {"updates_min": 39, "dead_max": 0},
+                  "run_klt": {"updates_min": 39, "dead_max": 0}}
+LEGACY_SLACK = 2
+
+
+def lens_sequence(device, hw, K, n_frames: int, margin: int):
+    """Phase 5b's corridor through the lens LENS_D: pinhole renders
+    widened by ``margin`` on the card, distorted on the host
+    (:func:`distort_frame`), back on the card. -> (frames (n, H, W) uint8,
+    T_wc)."""
+    import torch
+    from simpleslam_tpu_torch.tools.synth import render_sequence
+    chw, cK = pinhole_canvas(K, hw, margin)
+    mapx, mapy = lens_map(K, LENS_D, hw, margin)
+    ideal, T = render_sequence("corridor", 0, chw, cK, n_frames, speed=0.5,
+                               yaw_rate_deg=0.3, device=device)
+    frames = np.stack([distort_frame(f, mapx, mapy)
+                       for f in ideal.cpu().numpy()])
+    return torch.as_tensor(frames, device=device), T
+
+
+def run_undistort_part(dev, weights) -> tuple:
+    """(a) The lens on the main path: the maps and one remap on the card
+    against the port on the CPU, then phase 5b's main path on the
+    distorted frames (:func:`run_main_path` with ``lens``). -> (result,
+    the card's maps, the distorted frames)."""
+    import torch
+    from simpleslam_tpu_torch.ops import projection as proj
+    hw, K, _argv = bench_setup(False)
+    H, W = hw
+    t0 = time.time()
+    frames, T = lens_sequence(dev, hw, K, 40, LENS_MARGIN)
+    res = {"lens_D": LENS_D.tolist(), "margin_px": LENS_MARGIN,
+           "lens_frames_s": time.time() - t0}
+
+    def build(device):
+        Kd = torch.as_tensor(K, dtype=torch.float32, device=device)
+        Dd = torch.as_tensor(LENS_D, dtype=torch.float32, device=device)
+        newK = proj.optimal_new_camera_matrix(Kd, Dd, (W, H))
+        return newK, proj.undistort_rectify_map(Kd, Dd, newK, (W, H))
+
+    newK, maps = build(dev)
+    newK_cpu, maps_cpu = build("cpu")
+    f0 = frames[0]
+    f0f = f0.float()
+    card = proj.remap_bilinear(f0, *maps).cpu()
+    cpu = proj.remap_bilinear(f0.cpu(), *maps_cpu)
+    diff = (card.int() - cpu.int()).abs()
+    res.update(
+        newK=newK.cpu().tolist(),
+        newK_vs_cpu=float((newK.cpu() - newK_cpu).abs().max()),
+        maps_vs_cpu_px=max(float((m.cpu() - c).abs().max())
+                           for m, c in zip(maps, maps_cpu)),
+        remap_vs_cpu_max_levels=int(diff.max()),
+        remap_vs_cpu_share_differing=float((diff > 0).float().mean()),
+        map_build_ms=forward_times_ms(lambda: build(dev), runs=5),
+        remap_uint8_times_ms=call_times(
+            lambda: proj.remap_bilinear(f0, *maps), iters=5),
+        remap_float_times_ms=call_times(
+            lambda: proj.remap_bilinear(f0f, *maps), iters=5),
+        remap_uint8_kernels=len(device_kernels(
+            lambda: proj.remap_bilinear(f0, *maps))))
+    if int(diff.max()) > 1:
+        raise RuntimeError(f"remap on the card vs the CPU: {res}")
+    main = run_main_path(dev, weights=weights, timed_rounds=1,
+                         lens=(frames, T, LENS_D))
+    main["ate_max"] = max(2 * LENS_JAX_CPU["ate_m"], 0.05)
+    main["jax_cpu"] = LENS_JAX_CPU
+    res["main"] = main
+    failed = [name for name, ok in (
+        ("initialised", main["initialised"]),
+        ("finite", main.get("finite")),
+        ("consistent", main.get("consistent")),
+        ("lost", main.get("lost") is not None
+         and main["lost"] <= LENS_JAX_CPU["lost"]),
+        ("keyframes", abs(main.get("keyframes", -99)
+                          - LENS_JAX_CPU["keyframes"]) <= 2),
+        ("ate", main.get("ate_m", np.inf) <= main["ate_max"]),
+        ("kernel", main.get("match_calls_fused_loop", 0) > 0
+         and main["launches_fused_loop"]
+         == 36 * main["match_calls_fused_loop"])) if not ok]
+    if failed:
+        raise RuntimeError(f"lens main path failed {failed}: {main}")
+    return res, maps, frames
+
+
+def calib_views(K_gt, D_gt, n_views: int, noise: float, seed: int):
+    """tests/test_calibrate.py's ``_render_views`` with the port's so3_exp:
+    (board points (N, 3), corners (V, N, 2))."""
+    import torch
+    from simpleslam_tpu_torch.ops import se3
+    from simpleslam_tpu_torch.tools.calibrate import chessboard_object_points
+    rng = np.random.default_rng(seed)
+    obj = chessboard_object_points(9, 6, 0.03)
+    k1, k2, p1, p2, k3 = D_gt
+    img_pts = []
+    for _ in range(n_views):
+        w = rng.normal(size=3) * 0.25
+        t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.1, 0.1),
+                      rng.uniform(0.4, 0.8)])
+        R = se3.so3_exp(torch.as_tensor(w, dtype=torch.float32)).numpy()
+        pc = obj @ R.T + t
+        x = pc[:, 0] / pc[:, 2]
+        y = pc[:, 1] / pc[:, 2]
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3
+        xd = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        uv = np.stack([K_gt[0, 0] * xd + K_gt[0, 2],
+                       K_gt[1, 1] * yd + K_gt[1, 2]], -1)
+        img_pts.append(uv + rng.normal(0, noise, uv.shape))
+    return obj, np.stack(img_pts)
+
+
+def run_calibration_part(dev) -> dict:
+    """(b) ``calibrate_camera`` on the card and on the CPU, 8 views with
+    0.3 px noise through LENS_D, 40 LM steps."""
+    import torch
+    from simpleslam_tpu_torch.tools.calibrate import calibrate_camera
+    obj, img_pts = calib_views(CALIB_K, LENS_D, 8, 0.3, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K, D, rms, _ = calibrate_camera(obj, img_pts, refine_iters=40,
+                                    device=dev)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Kc, Dc, rms_c, _ = calibrate_camera(obj, img_pts, refine_iters=40,
+                                        device="cpu")
+    res = {"K": K.tolist(), "D": D.tolist(), "rms_px": rms,
+           "K_vs_cpu_px": float(np.abs(K - Kc).max()),
+           "D_vs_cpu": float(np.abs(D - Dc).max()), "rms_cpu_px": rms_c,
+           "solve_s": secs, "solve_cpu_s": time.perf_counter() - t0}
+    ok = (rms < 0.6 and abs(K[0, 0] - 580) < 10.0
+          and abs(D[0] - (-0.25)) < 0.03 and abs(D[1] - 0.08) < 0.1
+          and res["K_vs_cpu_px"] <= CALIB_K_TOL)
+    if not ok:
+        raise RuntimeError(f"calibration on the card failed: {res}")
+    return res
+
+
+def run_klt_part(dev, maps, frames) -> dict:
+    """(c) ``fb_track`` from frame 0 to frame 1 of the undistorted corridor
+    (grey, remapped in float32 as the fused step does) on frame 0's ORB
+    keypoints at 2048, on the card against the CPU."""
+    import torch
+    from simpleslam_tpu_torch.ops import projection as proj
+    from simpleslam_tpu_torch.ops.features import orb_detect_and_describe
+    from simpleslam_tpu_torch.ops.klt import fb_track
+    g0, g1 = (proj.remap_bilinear(frames[i].float(), *maps) for i in (0, 1))
+    feats = orb_detect_and_describe(g0, max_kp=N_KP)
+    pts = feats.kpts[feats.valid]
+    card = fb_track(g0, g1, pts)
+    cpu = fb_track(g0.cpu(), g1.cpu(), pts.cpu())
+    st_card, st_cpu = card[1].cpu(), cpu[1]
+    both = st_card & st_cpu
+    gap = float((card[0].cpu()[both] - cpu[0][both]).abs().max()) \
+        if bool(both.any()) else float("inf")
+    res = {"points": int(pts.shape[0]), "good_card": int(st_card.sum()),
+           "good_cpu": int(st_cpu.sum()),
+           "status_agree": float((st_card == st_cpu).float().mean()),
+           "point_gap_px": gap,
+           # a call's ~thousands of launches fill the launch queue, so
+           # call_times' device-side sleep cannot hide the host: each call
+           # timed alone, and its device time from one trace
+           "call_ms": forward_times_ms(lambda: fb_track(g0, g1, pts),
+                                       runs=5, warmup=1),
+           "trace": device_idle_share(lambda: fb_track(g0, g1, pts))}
+    if not (res["status_agree"] >= KLT_STATUS_AGREE_MIN
+            and gap <= KLT_POINT_TOL and res["good_card"] > pts.shape[0] // 2):
+        raise RuntimeError(f"KLT on the card vs the CPU: {res}")
+    return res
+
+
+def run_stereo_part(dev) -> dict:
+    """(d) The corridor from a left and a right camera 0.54 m apart at
+    376x1232 (scene seed 2, tests/test_stereo.py's setup): block matching
+    on the card against the CPU, timed with its peak memory, then
+    ``StereoTracker`` (ORB) over STEREO_FRAMES pairs."""
+    import torch
+    from simpleslam_tpu_torch.config import SLAMConfig
+    from simpleslam_tpu_torch.ops.stereo import disparity_block_match
+    from simpleslam_tpu_torch.stereo import StereoTracker
+    from simpleslam_tpu_torch.tools.synth import (CorridorScene,
+                                                  make_trajectory)
+    hw, K, _argv = bench_setup(False)
+    scene = CorridorScene(seed=2, hw=hw, K=K, device=dev)
+    T = make_trajectory(STEREO_FRAMES, speed=0.5, yaw_rate_deg=0.0)
+    offs = np.eye(4)
+    offs[0, 3] = STEREO_BASELINE
+    lefts = [scene.render(T[i]) for i in range(STEREO_FRAMES)]
+    rights = [scene.render(T[i] @ offs) for i in range(STEREO_FRAMES)]
+    gl, gr = lefts[0].float(), rights[0].float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    disp, valid = disparity_block_match(gl, gr, max_disp=64)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    d_cpu, v_cpu = disparity_block_match(gl.cpu(), gr.cpu(), max_disp=64)
+    valid = valid.cpu()
+    both = valid & v_cpu
+    res = {"hw": list(hw), "max_disp": 64,
+           "valid_card": int(valid.sum()), "valid_cpu": int(v_cpu.sum()),
+           "valid_agree": float((valid == v_cpu).float().mean()),
+           "disp_gap_median_px": float((disp.cpu()[both] - d_cpu[both])
+                                       .abs().median()),
+           "disp_gap_max_px": float((disp.cpu()[both] - d_cpu[both])
+                                    .abs().max()),
+           "peak_memory_mb": peak / 2 ** 20,
+           "times_ms": call_times(
+               lambda: disparity_block_match(gl, gr, max_disp=64), iters=5,
+               warmup=1)}
+    if not (res["valid_agree"] >= STEREO_VALID_AGREE_MIN
+            and res["disp_gap_median_px"] <= STEREO_DISP_MEDIAN_TOL
+            and res["valid_card"] > 0.2 * hw[0] * hw[1]):
+        raise RuntimeError(f"block matching on the card vs the CPU: {res}")
+    cfg = SLAMConfig(pnp_min_inliers=20, headless=True)
+    tr = StereoTracker(cfg, K, baseline=STEREO_BASELINE, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for L, R in zip(lefts, rights):
+        tr.step(L, R)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = [float(np.linalg.norm((b @ np.linalg.inv(a))[:3, 3]))
+             for a, b in zip(tr.poses[:-1], tr.poses[1:])][1:]
+    res["tracker"] = {"frames": STEREO_FRAMES, "tracked": tr.n_tracked,
+                      "lost": tr.n_lost, "steps_m": steps,
+                      "frames_per_s": STEREO_FRAMES / secs,
+                      "finite": bool(np.isfinite(np.stack(tr.poses)).all())}
+    if not (tr.n_tracked >= STEREO_FRAMES - 2 and res["tracker"]["finite"]
+            and abs(np.median(steps) - 0.5) < 0.1):
+        raise RuntimeError(f"StereoTracker on the card: {res['tracker']}")
+    return res
+
+
+LEGACY_DONE = {
+    "run_ef": re.compile(r"legacy E/F done: (\d+) poses \((\d+) finite\) "
+                         r"\((\d+) rot-only, (\d+) full, (\d+) dead\), "
+                         r"([\d.]+) FPS"),
+    "run_klt": re.compile(r"legacy KLT done: (\d+) poses \((\d+) finite\) "
+                          r"\((\d+) rot-only, (\d+) full, (\d+) "
+                          r"reseeds\), ([\d.]+) FPS")}
+
+
+def run_legacy_part() -> dict:
+    """(e) ``python -m simpleslam_tpu_torch.legacy.run_ef`` and
+    ``run_klt`` in two subprocesses at once over phase 7's corridor
+    (CLI_FRAMES at 370x1226, rendered on the card by ``tools.synth``),
+    held to LEGACY_JAX_CPU."""
+    import tempfile
+    from simpleslam_tpu_torch.tools import synth
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    res = {"frames": CLI_FRAMES, "hw": list(synth.DEFAULT_HW)}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "synth")
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):
+            if synth.main(["--out", base, "--frames", str(CLI_FRAMES)]) != 0:
+                raise RuntimeError("tools.synth failed")
+        res["synth_s"] = time.time() - t0
+        t0 = time.time()
+        procs = {m: subprocess.Popen(
+            [sys.executable, "-m", f"simpleslam_tpu_torch.legacy.{m}",
+             "--dataset", "kitti", "--base_dir", base, "--headless"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for m in LEGACY_DONE}
+        outs = {}
+        try:
+            for m, p in procs.items():
+                outs[m] = (p.communicate(timeout=400)[0], p.returncode)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res["wall_s"] = time.time() - t0
+        failed = []
+        for m, (out, rc) in outs.items():
+            hit = LEGACY_DONE[m].search(out)
+            if rc != 0 or hit is None:
+                raise RuntimeError(f"{m}: exit code {rc}, output tail "
+                                   f"{out[-3000:]}")
+            n, finite, rot, full, last, fps = hit.groups()
+            n, finite, rot, full = int(n), int(finite), int(rot), int(full)
+            dead = int(last) if m == "run_ef" else n - 1 - rot - full
+            want = LEGACY_JAX_CPU[m]
+            r = {"poses": n, "finite": finite, "rot_only": rot, "full": full,
+                 "dead": dead, "frames_per_s": float(fps), "jax_cpu": want,
+                 "png": os.path.isfile(os.path.join(
+                     tmp, "trajectory_kitti_" + m[4:] + ".png"))}
+            if m == "run_klt":
+                r["reseeds"] = int(last)
+            res[m] = r
+            if not (n == CLI_FRAMES and finite == n
+                    and rot + full >= want["updates_min"] - LEGACY_SLACK
+                    and dead <= want["dead_max"] + LEGACY_SLACK):
+                failed.append(m)
+        if failed:
+            raise RuntimeError(f"legacy CLIs failed {failed}: {res}")
+    return res
+
+
+def run_image_geometry_phase(dev, weights) -> dict:
+    """Phase 10: (a) undistortion on the main path, (b) calibration, (c)
+    KLT, (d) stereo, (e) the legacy CLIs; each part raises on a failed
+    check."""
+    res = {}
+    t0 = time.time()
+    res["undistort"], maps, frames = run_undistort_part(dev, weights)
+    res["undistort"]["seconds"] = time.time() - t0
+    for name, fn in (("calibrate", run_calibration_part),
+                     ("klt", lambda d: run_klt_part(d, maps, frames)),
+                     ("stereo", run_stereo_part),
+                     ("legacy", lambda d: run_legacy_part())):
+        t0 = time.time()
+        res[name] = fn(dev)
+        res[name]["seconds"] = time.time() - t0
+    return res
+
+
 def main() -> None:
     t_all = time.time()
     import torch
@@ -2809,6 +3268,7 @@ def main() -> None:
     t0 = time.time()
     res = run_main_path(dev, weights=weights, timed_rounds=2)
     launches, launches_fused = res["launches"], res["launches_fused_loop"]
+    main_fps = res.get("frames_per_s")
     log("slam", t0, nvidia_smi=smi, ate_max=MAIN_ATE_MAX, **res)
     if not main_path_ok(res):
         raise RuntimeError(f"main path failed its checks: {res}")
@@ -2840,7 +3300,13 @@ def main() -> None:
     dres = run_detector_state_phase(dev)
     log("detectors_state", t0, nvidia_smi=smi, **dres)
 
-    # 10. kernels ------------------------------------------------------------
+    # 10. image geometry: lens, calibration, KLT, stereo, legacy CLIs ------
+    t0 = time.time()
+    gres = run_image_geometry_phase(dev, weights)
+    log("image_geometry", t0, nvidia_smi=smi,
+        phase5b_frames_per_s=main_fps, **gres)
+
+    # 11. kernels ------------------------------------------------------------
     # the self-attention mix: float32 q, k and bf16 v, the main path's
     # heavier call (its cross-attention mix is in phase 3's and phase 6b's
     # lines)

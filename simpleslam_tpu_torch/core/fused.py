@@ -49,6 +49,7 @@ from simpleslam_tpu_torch.ops import epipolar, pnp, se3
 from simpleslam_tpu_torch.ops.ba import BAProblem, ba_solve
 from simpleslam_tpu_torch.ops.maskops import take
 from simpleslam_tpu_torch.ops.matching import unpack_bits
+from simpleslam_tpu_torch.ops.projection import remap_bilinear
 from simpleslam_tpu_torch.ops.triangulation import (projection_matrix,
                                                     triangulate_two_view,
                                                     two_view_gates)
@@ -535,8 +536,9 @@ class FusedStep:
     def __init__(self, fc: FusedConfig, K: np.ndarray,
                  extract_fn: Callable[[torch.Tensor], Features],
                  match_fn: Callable[[Features, Features], Matches],
-                 device=None):
+                 device=None, undistort_maps=None):
         self.fc = fc
+        self.undistort_maps = undistort_maps
         self.device = resolve_device(device)
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32,
                                  device=self.device)
@@ -946,12 +948,15 @@ class FusedStep:
     @torch.no_grad()
     def __call__(self, state: FusedState, image: torch.Tensor) -> FusedState:
         """Process one frame: ``image`` (H, W) grey or (H, W, 3) BGR, uint8
-        or float, on the step's device."""
+        or float, on the step's device; with undistortion maps the grey
+        frame is remapped (in float32, not rounded)."""
         img = image.to(self.device)
         if img.dim() == 3:
             img = img.float() @ self.bgr_weights
         else:
             img = img.float()
+        if self.undistort_maps is not None:
+            img = remap_bilinear(img, *self.undistort_maps)
         frame_no = state.frame_no
         feats = self.detect(img)
         T_new, pnp_ok, relocd, grelocd, n_inl, n_cand, assoc, inl = \
@@ -986,9 +991,10 @@ class FusedStep:
 def build_fused_step(fc: FusedConfig, K: np.ndarray,
                      extract_fn: Callable[[torch.Tensor], Features],
                      match_fn: Callable[[Features, Features], Matches],
-                     device=None) -> FusedStep:
+                     device=None, undistort_maps=None) -> FusedStep:
     """The per-frame step (see :class:`FusedStep`). ``extract_fn``: (H, W)
     float grey -> Features (ALIKED); ``match_fn``: (Features, Features) ->
     Matches (LightGlue); ``device``: None is the GPU (raises without one),
-    "cpu" the CPU."""
-    return FusedStep(fc, K, extract_fn, match_fn, device)
+    "cpu" the CPU; ``undistort_maps``: (mapx, mapy) on the device
+    (``SLAMSystem._undistort_maps``) or None."""
+    return FusedStep(fc, K, extract_fn, match_fn, device, undistort_maps)

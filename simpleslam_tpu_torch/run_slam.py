@@ -13,10 +13,11 @@ BA (``--gba_enable``: at the ``gba_every`` keyframe milestone and after an
 accepted closure). ``--save_state`` writes the map, trajectory and
 keyframes at the end of a run (``utils/serialize.py``), ``--resume``
 continues from such a file, and ``--resume --localize_only`` tracks against
-its map frozen, the first pose from global relocalisation. Tensors live on
-the system's device; the map and the decisions live on the host. Not ported
-yet (they raise): lens undistortion and the live windows (``run`` needs
-``--headless``).
+its map frozen, the first pose from global relocalisation. A lens with
+distortion is undistorted on the device: on the host each raw frame before
+extraction, in the fused step each grey frame. Tensors live on the system's
+device; the map and the decisions live on the host. Not ported yet (it
+raises): the live windows (``run`` needs ``--headless``).
 
 Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
           --base_dir <dir> --headless --no_viz3d [--fused] [--device cpu]
@@ -46,7 +47,7 @@ from simpleslam_tpu_torch.core.triangulate import \
     triangulate_between_kfs_2view
 from simpleslam_tpu_torch.core.types import Features, Matches
 from simpleslam_tpu_torch.data import Prefetcher, Sequence as Dataset
-from simpleslam_tpu_torch.ops import epipolar, pnp, se3
+from simpleslam_tpu_torch.ops import epipolar, pnp, projection, se3
 from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
 from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.profiling import StageTimer
@@ -102,8 +103,13 @@ class SLAMSystem:
     """The live pipeline, reusable by the CLI, tests and benchmarks.
 
     ``device``: None runs on CUDA and raises without it; pass "cpu" to run
-    on the CPU. ``key``: the randomness source (``utils/rng.py``; default a
-    ``TorchKey`` seeded from ``cfg.seed``). ``weights``: optional
+    on the CPU. ``D``: the lens's distortion (k1, k2, p1, p2[, k3]); a
+    nonzero ``D`` with ``img_hw`` builds the undistortion maps, and ``K``
+    becomes the new camera matrix of the undistorted frames
+    (``ops/projection.py``). Without ``img_hw`` the distorted frames are
+    tracked as they are, as in the reference. ``key``: the randomness
+    source (``utils/rng.py``; default a ``TorchKey`` seeded from
+    ``cfg.seed``). ``weights``: optional
     (aliked_state_dict, lightglue_state_dict); otherwise the trained tree
     (``models/pipeline.py``).
 
@@ -117,12 +123,21 @@ class SLAMSystem:
                  D: Optional[np.ndarray] = None,
                  img_hw: Optional[tuple] = None, device=None, key=None,
                  weights: Optional[Tuple[Mapping, Mapping]] = None):
-        if D is not None and np.any(np.abs(np.asarray(D)) > 1e-12):
-            raise NotImplementedError(
-                "lens undistortion is not ported yet (nonzero D)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.K = np.asarray(K, np.float64)
+        self._undistort_maps = None
+        if (D is not None and np.any(np.abs(np.asarray(D)) > 1e-12)
+                and img_hw):
+            H, W = img_hw
+            K_t = torch.as_tensor(self.K, dtype=torch.float32,
+                                  device=self.device)
+            D_t = torch.as_tensor(np.asarray(D), dtype=torch.float32,
+                                  device=self.device)
+            newK = projection.optimal_new_camera_matrix(K_t, D_t, (W, H))
+            self._undistort_maps = projection.undistort_rectify_map(
+                K_t, D_t, newK, (W, H))
+            self.K = newK.cpu().numpy().astype(np.float64)
         self._K_t = torch.as_tensor(self.K, dtype=torch.float32,
                                     device=self.device)
         self.timer = StageTimer()
@@ -167,8 +182,16 @@ class SLAMSystem:
                                device=self.device)
 
     def preprocess(self, img):
-        """The frame as tracked: undistortion is not ported, and a system
-        with nonzero ``D`` refuses to start, so this is the identity."""
+        """The frame as tracked: with undistortion maps, ``img`` (a host
+        array or tensor, BGR or grey) remapped on the system's device in its
+        own dtype (uint8 rounded half to even), before the extractor makes
+        it grey; otherwise ``img`` itself."""
+        if self._undistort_maps is not None:
+            mapx, mapy = self._undistort_maps
+            img = projection.remap_bilinear(
+                torch.as_tensor(img if torch.is_tensor(img)
+                                else np.asarray(img), device=self.device),
+                mapx, mapy)
         return img
 
     def extract(self, img) -> Features:
@@ -756,7 +779,7 @@ def build_fused_loop(cfg: SLAMConfig, system: SLAMSystem,
                            log_capacity=1 << max(10, n_frames.bit_length()))
     match_fn = getattr(system.matcher, "fn_fast", None) or system.matcher.fn
     step = build_fused_step(fc, system.K, system.detector.fn, match_fn,
-                            system.device)
+                            system.device, system._undistort_maps)
     return fc, step, state_from_host(system, fc, prev_feats)
 
 

@@ -354,9 +354,12 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     K = corridor[0]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SLAMSystem(SLAMConfig(use_lightglue=True), K)
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        SLAMSystem(SLAMConfig(use_lightglue=True), K,
-                   D=np.array([0.1, 0.0, 0.0, 0.0]), device="cpu")
+    lens = SLAMSystem(SLAMConfig(), K, D=np.array([0.1, 0.0, 0.0, 0.0]),
+                      img_hw=HW, device="cpu")
+    mapx, mapy = lens._undistort_maps
+    assert mapx.shape == mapy.shape == HW
+    assert lens.K.dtype == np.float64 and not np.allclose(lens.K, K)
+    assert np.array_equal(lens._K_t.numpy(), lens.K.astype(np.float32))
     for name in ("sift", "akaze"):
         system = SLAMSystem(SLAMConfig(detector=name), K, device="cpu")
         assert system.detector.device == torch.device("cpu")
