@@ -179,7 +179,33 @@ Phases:
               finite, the updates and dead-reckoned frames within
               LEGACY_SLACK of the JAX package's spread over RANSAC seeds
               0-3 (LEGACY_JAX_CPU), frames/s, KLT's reseeds;
-  11. kernels one JSON line, one entry per kernel.
+  11. photos  the photograph paths (plain PyTorch, no kernel of their
+              own; the attention kernels run under them): (a) eight
+              480x640 photographs, views of the port's box and corridor
+              scenes rendered on the card with noise and hard edges, as
+              grey and BGR PNG and 4:2:0 and 4:4:4 JPEG; the grey reader
+              equal to cv2.imread on each; (b) PhotoScene's 40-frame
+              sequence at 376x1232 rendered on the card
+              (``generate_kitti_sequence(scene="photo")``), three frames
+              within one level of the CPU's render, one frame's render ms,
+              run_slam's default ORB host command over it held to the JAX
+              package's spread over RANSAC seeds 0-3
+              (PHOTO_SLAM_JAX_CPU); (c) ``train_frontend.main`` at the
+              pinned width over the corridor, box and photo families with
+              ``--real_frac 0.25`` (PHOTO_TRAIN_ARGV): finite losses, 36
+              forward and 36 backward kernel launches a step, every pool
+              drawn, step and batch ms by pool, the idle share over three
+              steps; (d) ``tools.real_eval --compare --json`` on the
+              photographs (16 episodes, 1024 keypoints): the table, 36
+              attention launches per match call, the learned aggregate
+              against the port's CPU reading (REAL_EVAL_CPU); (e) a
+              20-frame Malaga-layout sequence of 800x600 JPEG frames with a
+              GPS log: each frame decoded equal to cv2.imread, run_slam
+              --dataset malaga (ORB, host), frames/s and lost frames; (f)
+              on (b)'s map: landmark fusion at 0.1 m against a brute-force
+              pair search on the card, MultiViewTriangulator over the run's
+              keyframes on the card;
+  12. kernels one JSON line, one entry per kernel.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -386,6 +412,70 @@ def shifted_frame(tex: np.ndarray, hw, dx: int, dy: int, pad: int = 64):
     """The window of ``tex`` moved by (dx, dy) pixels."""
     return np.ascontiguousarray(tex[pad + dy: pad + dy + hw[0],
                                     pad + dx: pad + dx + hw[1]])
+
+
+# Phase 11 ("photos"): eight photographs at PHOTO_HW written by
+# write_photos; PhotoScene's sequence of PHOTO_FRAMES frames at
+# PHOTO_SEQ_HW; real_eval's argv (8 photographs x 2 warps = 16 episodes)
+PHOTO_HW = (480, 640)
+PHOTO_FRAMES = 40
+PHOTO_SEQ_HW = (376, 1232)
+REAL_EVAL_ARGV = ["--n", "8", "--warps", "2", "--compare", "--json",
+                  "--max_kp", "1024"]
+
+
+def photo_views(hw, device, n: int = 8) -> list:
+    """``n`` grey uint8 views for phase 11's photographs: the port's
+    BoxScene and CorridorScene (seeds 401 and 402, scenes of their own)
+    in turn, along a yawing trajectory, rendered on ``device``."""
+    from simpleslam_tpu_torch.tools.synth import (DEFAULT_HW, DEFAULT_K,
+                                                  BoxScene, CorridorScene,
+                                                  make_trajectory)
+    K = DEFAULT_K.copy()
+    K[0] *= hw[1] / DEFAULT_HW[1]
+    K[1] *= hw[0] / DEFAULT_HW[0]
+    scenes = [cls(seed=401 + i, hw=tuple(hw), K=K, device=device)
+              for i, cls in enumerate((BoxScene, CorridorScene))]
+    T = make_trajectory(n, speed=1.5, yaw_rate_deg=6.0)
+    return [scenes[i % 2].render(T[i]).cpu().numpy() for i in range(n)]
+
+
+def write_photos(out_dir: str, views, seed: int = 0) -> list:
+    """Photographs from grey ``views`` (eight, usually): sensor-like noise,
+    an inverted block and a dark bar (hard edges) on each; views 0-3
+    written as grey PNG, 4-5 as BGR PNG, 6 as a 4:2:0 and 7 as a 4:4:4
+    BGR JPEG (quality 90, cv2). The colour channels differ (a shifted copy
+    and a dimmed negative), so reading them as grey weighs all three.
+    Returns the paths, sorted."""
+    from simpleslam_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, v in enumerate(views):
+        H, W = v.shape
+        img = v.astype(np.float64) + rng.normal(0.0, 4.0, v.shape)
+        y0, x0 = int(rng.integers(0, H // 2)), int(rng.integers(0, W // 2))
+        blk = img[y0:y0 + H // 4, x0:x0 + W // 4]
+        img[y0:y0 + H // 4, x0:x0 + W // 4] = 255.0 - blk
+        bar = int(rng.integers(0, W - 4))
+        img[:, bar:bar + 3] = 20.0
+        grey = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+        bgr = np.stack([grey, np.roll(grey, 3, axis=1),
+                        (255 - grey) // 2], -1)
+        if i < 6:
+            path = os.path.join(out_dir, f"photo_{i:02d}.png")
+            write_png(path, grey if i < 4 else bgr)
+        else:
+            import cv2
+            path = os.path.join(out_dir, f"photo_{i:02d}.jpg")
+            sub = (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420 if i == 6
+                   else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)
+            if not cv2.imwrite(path, bgr, [
+                    int(cv2.IMWRITE_JPEG_QUALITY), 90,
+                    int(cv2.IMWRITE_JPEG_SAMPLING_FACTOR), int(sub)]):
+                raise RuntimeError(f"cv2 could not write {path}")
+        paths.append(path)
+    return sorted(paths)
 
 
 def bench_setup(small: bool = False):
@@ -3140,6 +3230,440 @@ def run_image_geometry_phase(dev, weights) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: photographs
+# --------------------------------------------------------------------------- #
+
+# (b) the JAX package's readings of run_slam's default command (ORB, host)
+# over PhotoScene's 40-frame sequence at 376x1232 on this phase's
+# photographs (rendered by the port on the CPU), per RANSAC seed 0-3
+# (``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_photo.py
+# --slam``). The card's run is held to their spread: lost frames at most
+# their most, frames posed at least their least, keyframes within
+# CLI_KF_SLACK of their range, ATE at most max(2 x their largest,
+# CLI_ATE_FLOOR).
+PHOTO_SLAM_JAX_CPU = {
+    "lost": [0, 0, 0, 0],
+    "keyframes": [8, 8, 8, 8],
+    "ate_m": [0.06152848031497023, 0.03989883981060472,
+              0.042505518012049666, 0.03358876876593753],
+    "posed": [39, 39, 39, 39]}
+# (c) phase 6b's training argv with the three scene families and a quarter
+# of the steps on photograph pairs
+PHOTO_TRAIN_ARGV = TRAIN_ARGV + ["--families", "corridor,boxes,photo",
+                                 "--real_frac", "0.25"]
+# (d) the port's CPU reading of REAL_EVAL_ARGV on these photographs
+# (``python tests/test_torch_photo.py --real_eval``), learned front-end;
+# the card's aggregate is held to it within REAL_EVAL_TOL (bf16 on both,
+# rounded at other places: the attention kernel on the card, other
+# convolution algorithms)
+REAL_EVAL_CPU = {
+    "repeatability": 0.8514228472925369,
+    "match_precision": 0.9897017484510313,
+    "match_recall_vs_vis": 0.6948189257979573,
+    "n_matches": 658.25,
+    "n_episodes": 16}
+REAL_EVAL_TOL = {"repeatability": 0.03, "match_precision": 0.05,
+                 "match_recall_vs_vis": 0.05, "n_matches": 0.1}
+# (e) a Malaga-layout sequence of MALAGA_FRAMES 800x600 JPEG frames
+MALAGA_FRAMES = 20
+MALAGA_DIR = "malaga-urban-dataset-extract-07_rectified_800x600_Images"
+MALAGA_GPS = "malaga-urban-dataset-extract-07_all-sensors_GPS.txt"
+
+
+def run_photo_reader_part(dev, tmp: str) -> tuple:
+    """(a) The photographs (views of the port's scenes rendered on the
+    card, written by :func:`write_photos`) and the grey reader against
+    ``cv2.imread``; ``REAL_PHOTO_GLOB`` pointed at them. Returns (readings,
+    the glob)."""
+    import cv2
+    from simpleslam_tpu_torch.tools import synth
+    from simpleslam_tpu_torch.utils.imgproc import imread_gray
+    t0 = time.time()
+    paths = write_photos(os.path.join(tmp, "photos"),
+                         photo_views(PHOTO_HW, dev))
+    res = {"hw": list(PHOTO_HW), "write_s": time.time() - t0,
+           "photos": [os.path.basename(p) for p in paths]}
+    pattern = os.path.join(tmp, "photos", "*")
+    synth.REAL_PHOTO_GLOB = pattern
+    equal, read_ms = [], []
+    for p in paths:
+        t0 = time.perf_counter()
+        got = imread_gray(p)
+        read_ms.append(1e3 * (time.perf_counter() - t0))
+        equal.append(bool(np.array_equal(
+            got, cv2.imread(p, cv2.IMREAD_GRAYSCALE))))
+    res.update(reader_equal_cv2=sum(equal), read_ms=read_ms)
+    if not all(equal):
+        raise RuntimeError(f"the grey reader differs from cv2.imread: "
+                           f"{dict(zip(res['photos'], equal))}")
+    return res, pattern
+
+
+def run_photo_scene_part(dev, tmp: str) -> tuple:
+    """(b) ``generate_kitti_sequence(scene="photo")`` on the card, one
+    frame's render time, three frames against the port's CPU render, then
+    run_slam's default command over the sequence (held to
+    PHOTO_SLAM_JAX_CPU). Returns (readings, the run's SLAMSystem)."""
+    import torch
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.tools import synth
+    res = {"frames": PHOTO_FRAMES, "hw": list(PHOTO_SEQ_HW)}
+    base = os.path.join(tmp, "seq")
+    t0 = time.time()
+    synth.generate_kitti_sequence(base, n_frames=PHOTO_FRAMES,
+                                  hw=PHOTO_SEQ_HW, scene="photo", device=dev)
+    res["generate_s"] = time.time() - t0
+    H, W = PHOTO_SEQ_HW
+    K = synth.DEFAULT_K.copy()
+    K[0] *= W / synth.DEFAULT_HW[1]
+    K[1] *= H / synth.DEFAULT_HW[0]
+    T = synth.make_trajectory(PHOTO_FRAMES)
+    t0 = time.time()
+    card = synth.PhotoScene(seed=0, hw=PHOTO_SEQ_HW, K=K, device=dev)
+    torch.cuda.synchronize()
+    res["scene_init_s"] = time.time() - t0
+    res["render_ms"] = forward_times_ms(lambda: card.render(T[5]), runs=5)
+    cpu = synth.PhotoScene(seed=0, hw=PHOTO_SEQ_HW, K=K, device="cpu")
+    vs_cpu = []
+    for i in (0, PHOTO_FRAMES // 2, PHOTO_FRAMES - 1):
+        a = card.render(T[i]).cpu().numpy().astype(int)
+        t0 = time.time()
+        b = cpu.render(T[i]).numpy().astype(int)
+        d = np.abs(a - b)
+        vs_cpu.append({"frame": i, "max_level_diff": int(d.max()),
+                       "share_differing": float((d > 0).mean()),
+                       "cpu_render_s": time.time() - t0})
+    res["card_vs_cpu"] = vs_cpu
+    if max(v["max_level_diff"] for v in vs_cpu) > 1:
+        raise RuntimeError(f"PhotoScene on the card differs from the CPU "
+                           f"by more than one level: {vs_cpu}")
+    argv = ["--dataset", "kitti", "--base_dir", base, "--headless",
+            "--no_viz3d"]
+    got = []
+    t0 = time.time()
+    with recorded_systems() as made:
+        if run_slam.main(argv, results=got) != 0:
+            raise RuntimeError("run_slam.main over the photo sequence: exit "
+                               "code not 0")
+    out = got[0]
+    ref = PHOTO_SLAM_JAX_CPU
+    r = {"argv": argv, "run_s": time.time() - t0, "ate_m": out.ate,
+         "lost": out.tracking_lost_count, "keyframes": out.n_keyframes,
+         "kf_frames": out.kf_frames, "map_points": out.n_landmarks,
+         "frames_posed": len(out.poses_cw), "frames_per_s": out.fps,
+         "jax_cpu": ref,
+         "ate_max": max(2 * max(ref["ate_m"]), CLI_ATE_FLOOR),
+         "lost_max": max(ref["lost"]),
+         "keyframes_range": [min(ref["keyframes"]) - CLI_KF_SLACK,
+                             max(ref["keyframes"]) + CLI_KF_SLACK]}
+    res["slam"] = r
+    lo, hi = r["keyframes_range"]
+    r["posed_min"] = min(ref["posed"])
+    if not (r["frames_posed"] >= r["posed_min"] and r["lost"] <= r["lost_max"]
+            and lo <= r["keyframes"] <= hi and r["ate_m"] is not None
+            and r["ate_m"] <= r["ate_max"]):
+        raise RuntimeError(f"run_slam over the photo sequence failed its "
+                           f"bounds: {r}")
+    return res, made[-1]
+
+
+def run_photo_train_part(dev, tmp: str) -> dict:
+    """(c) ``train_frontend.main`` at the pinned width over the three
+    families with ``--real_frac 0.25`` (the launch counts read around this
+    run only): finite losses, 36 forward and 36 backward kernel launches a
+    step, every pool drawn; the median step and batch times by pool; then
+    the device's idle share over three steps, one from each pool."""
+    import torch
+    from simpleslam_tpu_torch.models import checkpoint
+    from simpleslam_tpu_torch.models import train as train_mod
+    from simpleslam_tpu_torch.models import train_frontend
+    from simpleslam_tpu_torch.models.pipeline import from_jax_params
+    from simpleslam_tpu_torch.ops import attention
+    out = os.path.join(tmp, "trained_photo.npz")
+    hist = []
+    attention.cuda_masked_attention.launches = 0     # the path starts here
+    attention.MaskedAttentionFn.launches = 0
+    attention.cuda_masked_attention_bwd.launches = 0
+    t0 = time.time()
+    train_frontend.main(PHOTO_TRAIN_ARGV + ["--out", out], history=hist)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = attention.MaskedAttentionFn.launches    # ... ends here
+    launches_kernel = attention.cuda_masked_attention.launches
+    launches_bwd = attention.cuda_masked_attention_bwd.launches
+    sources = [r["source"] for r in hist]
+    finite = all(math.isfinite(v) for r in hist
+                 for v in r["metrics"].values())
+    step_ms = [r["step_ms"] for r in hist]
+    res = {"argv": PHOTO_TRAIN_ARGV, "steps": len(hist), "wall_s": wall,
+           "sources": sources, "launches": launches,
+           "launches_kernel": launches_kernel, "launches_bwd": launches_bwd,
+           "launches_per_step": launches / max(1, len(hist)),
+           "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms[3:])),
+           "batch_ms_median_by_pool": {
+               s: 1e3 * float(np.median([r["batch_s"] for r in hist
+                                         if r["source"] == s]))
+               for s in sorted(set(sources))},
+           "terms_first": hist[0]["metrics"],
+           "terms_last": hist[-1]["metrics"], "losses_finite": finite}
+    if not (finite and len(hist) == TRAIN_STEPS
+            and launches == 36 * TRAIN_STEPS
+            and launches_kernel == launches and launches_bwd == launches
+            and set(sources) == {"photo", "scene", "synthetic"}):
+        raise RuntimeError(f"training over the photographs failed its "
+                           f"checks: {res}")
+
+    # the idle share over three steps as the CLI runs them, one per pool
+    tree = checkpoint.load_frontend_tree(out, on_error="raise")
+    hw = (144, 256)
+    scene_pool = train_mod.ScenePairPool(
+        hw, n_views=6, n_scenes=3, render_hw=PHOTO_SEQ_HW, seed=1,
+        families=("corridor", "boxes", "photo"), device=dev)
+    photo_pool = train_mod.PhotoPairPool(hw, train_mod.train_photo_paths(),
+                                         device=dev)
+    tx, state = train_mod.make_train_state(
+        torch.Generator().manual_seed(0), device=dev,
+        state_dicts=from_jax_params(tree["aliked"], tree["lightglue"]),
+        desc_dim=train_frontend.DESC_DIM, dim=train_frontend.DIM,
+        n_layers=train_frontend.N_LAYERS)
+    step_fn = train_mod.make_train_step(tx, hw)
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def three_steps():
+        nonlocal state
+        for make in (lambda: photo_pool.batch(rng, 8, 96),
+                     lambda: scene_pool.batch(rng, 8, 96),
+                     lambda: {k: v.cpu().numpy() for k, v in
+                              train_mod.synthetic_pair_batch(
+                                  gen, 8, hw[0], hw[1], 96).items()
+                              if k != "Hmats"}):
+            batch = train_mod.batch_to_device(
+                train_mod.photometric_augment(rng, make()), dev)
+            state, _m = step_fn(state, batch)
+
+    three_steps()
+    res["trace_three_steps"] = device_idle_share(three_steps)
+    return res
+
+
+def run_real_eval_part(dev, pattern: str) -> dict:
+    """(d) ``tools.real_eval --compare --json`` on the photographs at
+    their size: the learned / ORB / AKAZE table, the attention kernel's
+    launches per match call, the learned aggregate against the port's CPU
+    reading (REAL_EVAL_CPU within REAL_EVAL_TOL)."""
+    import contextlib
+    import io
+    import torch
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.tools import real_eval
+    argv = REAL_EVAL_ARGV + ["--glob", pattern]
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    attention.cuda_masked_attention.launches = 0     # this run starts here
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = real_eval.main(argv)
+    torch.cuda.synchronize()
+    launches = attention.cuda_masked_attention.launches   # ... ends here
+    table = json.loads(buf.getvalue().strip().splitlines()[-1])
+    calls = table["learned"]["n_episodes"]      # one match call an episode
+    res = {"argv": argv, "run_s": time.time() - t0, "table": table,
+           "attention_launches": launches, "match_calls": calls,
+           "launches_per_match_call": launches / max(1, calls),
+           "cpu": REAL_EVAL_CPU, "tolerance": REAL_EVAL_TOL}
+    gaps = {k: abs(table["learned"][k] - REAL_EVAL_CPU[k])
+            / (REAL_EVAL_CPU[k] if k == "n_matches" else 1.0)
+            for k in REAL_EVAL_TOL}
+    res["learned_vs_cpu"] = gaps
+    if not (rc == 0 and calls >= 14 and launches == 36 * calls
+            and all(table[n]["n_episodes"] >= 14 for n in table)
+            and all(gaps[k] <= REAL_EVAL_TOL[k] for k in gaps)):
+        raise RuntimeError(f"real_eval on the card failed its checks: {res}")
+    return res
+
+
+def write_malaga(prefix: str, device, n: int = MALAGA_FRAMES) -> list:
+    """A Malaga-layout sequence under ``prefix``: ``n`` 800x600 BGR JPEG
+    frames of the port's corridor seen by the Malaga camera (quality 95,
+    timestamps 0.1 s apart in the names) and a GPS log of the camera
+    centres in the dataset's axes. Returns the frame paths."""
+    import cv2
+    from simpleslam_tpu_torch.data import dataloader
+    from simpleslam_tpu_torch.tools.synth import (CorridorScene,
+                                                  make_trajectory)
+    img_dir = os.path.join(prefix, MALAGA_DIR)
+    os.makedirs(img_dir, exist_ok=True)
+    scene = CorridorScene(seed=11, hw=(600, 800), K=dataloader._MALAGA_K,
+                          device=device)
+    T = make_trajectory(n)
+    ts = 100.0 + 0.1 * np.arange(n)
+    paths = []
+    for i in range(n):
+        grey = scene.render(T[i]).cpu().numpy()
+        bgr = np.stack([grey, grey, np.clip(grey * 0.9 + 20, 0, 255)
+                        .astype(np.uint8)], -1)
+        p = os.path.join(img_dir, f"img_CAMERA1_{ts[i]:.6f}_left.jpg")
+        if not cv2.imwrite(p, bgr, [int(cv2.IMWRITE_JPEG_QUALITY), 95]):
+            raise RuntimeError(f"cv2 could not write {p}")
+        paths.append(p)
+    rows = ["% GPS log", "% Time ... LocalX LocalY LocalZ"]
+    c = T[:, :3, 3]
+    for t, (cx, cy, cz) in zip([ts[0] - 0.05, *ts, ts[-1] + 0.05],
+                               [c[0], *c, c[-1]]):
+        vals = np.zeros(25)
+        vals[0] = t
+        vals[8:11] = (cz, -cx, cy)      # the loader's [-y, z, x] remap
+        rows.append(" ".join(f"{v:.6f}" for v in vals))
+    with open(os.path.join(prefix, MALAGA_GPS), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return paths
+
+
+def run_malaga_part(dev, tmp: str) -> dict:
+    """(e) Malaga's JPEG frames: each decoded by ``imread_bgr`` equal to
+    ``cv2.imread``, then ``run_slam --dataset malaga`` (ORB, host) over
+    them; frames/s, lost frames, keyframes, ATE against the GPS log."""
+    import cv2
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.data import dataloader
+    base = os.path.join(tmp, "malaga_base")
+    t0 = time.time()
+    paths = write_malaga(os.path.join(base, "malaga"), dev)
+    res = {"frames": len(paths), "hw": [600, 800],
+           "write_s": time.time() - t0}
+    equal, decode_ms = [], []
+    for p in paths:
+        t0 = time.perf_counter()
+        img = dataloader.imread_bgr(p)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        equal.append(bool(np.array_equal(img, cv2.imread(
+            p, cv2.IMREAD_UNCHANGED))))
+    res.update(decoded_equal_cv2=sum(equal),
+               decode_ms_median=float(np.median(decode_ms)))
+    argv = ["--dataset", "malaga", "--base_dir", base, "--headless",
+            "--no_viz3d"]
+    got = []
+    t0 = time.time()
+    if run_slam.main(argv, results=got) != 0:
+        raise RuntimeError("run_slam --dataset malaga: exit code not 0")
+    out = got[0]
+    res.update(argv=argv, run_s=time.time() - t0, frames_per_s=out.fps,
+               lost=out.tracking_lost_count, keyframes=out.n_keyframes,
+               frames_posed=len(out.poses_cw), ate_m=out.ate,
+               map_points=out.n_landmarks)
+    if not (all(equal) and res["frames_posed"] == len(paths)):
+        raise RuntimeError(f"the Malaga run failed its checks: {res}")
+    return res
+
+
+def fused_ids_bruteforce(points: np.ndarray, radius: float, device) -> list:
+    """The landmark indices that ``fuse_closeby_duplicate_landmarks``'s
+    greedy pass removes, with the pairs found by brute force on
+    ``device`` (float64 distances over all pairs, in row blocks)."""
+    import torch
+    P = torch.as_tensor(points, dtype=torch.float64, device=device)
+    pairs = []
+    for s in range(0, len(points), 2048):
+        d = torch.cdist(P[s:s + 2048], P)
+        i, j = torch.nonzero(d < radius, as_tuple=True)
+        keep = (i + s) < j
+        pairs += zip((i[keep] + s).tolist(), j[keep].tolist())
+    removed = set()
+    for a, b in sorted(pairs):
+        if a in removed or b in removed:
+            continue
+        removed.add(b)
+    return sorted(removed)
+
+
+def run_library_part(dev, system) -> dict:
+    """(f) On (b)'s host run's map: ``fuse_closeby_duplicate_landmarks(0.1)``
+    on a copy, against the same greedy pass over pairs found by brute
+    force on the card; ``MultiViewTriangulator`` on the card over the run's
+    keyframes (each landmark a track over its keyframe observations)."""
+    import copy
+    import torch
+    from simpleslam_tpu_torch.core.map import Map
+    from simpleslam_tpu_torch.ops.triangulation import MultiViewTriangulator
+    wm = system.world_map
+    ids = wm.point_ids()
+    pts = wm.get_point_array()
+    res = {"landmarks": len(ids), "keyframes": len(system.kfs)}
+    m = copy.deepcopy(wm)
+    t0 = time.time()
+    m.fuse_closeby_duplicate_landmarks(0.1)
+    res["fuse_s"] = time.time() - t0
+    kept = set(m.point_ids())
+    removed_host = sorted(i for i, pid in enumerate(ids) if pid not in kept)
+    t0 = time.time()
+    removed_card = fused_ids_bruteforce(pts, 0.1, dev)
+    torch.cuda.synchronize()
+    res.update(fused_removed=len(removed_host),
+               bruteforce_card_s=time.time() - t0,
+               fused_same_as_card=removed_host == removed_card)
+    tri = MultiViewTriangulator(system.K, min_views=2, device=dev)
+    tracks = {}
+    for pid in ids:
+        for kf, kp, _d in wm.points[pid].observations:
+            tracks.setdefault(kf, {})[kp] = pid
+    t0 = time.time()
+    for kf in system.kfs:
+        kps = kf.feats.kpts.cpu().numpy()
+        tri.add_keyframe(kf.idx, np.linalg.inv(kf.pose), kps,
+                         tracks.get(kf.idx, {}), None, None)
+    out_map = Map()
+    new = tri.triangulate_ready_tracks(out_map)
+    torch.cuda.synchronize()
+    res.update(mvt_tracks=len(tri._tracks), mvt_points=len(new),
+               mvt_after_fusion=len(out_map), mvt_s=time.time() - t0)
+    if new:
+        # the new ids follow the ready tracks' order; a track is a landmark
+        by_pid = dict(zip(ids, pts))
+        track_of = dict(zip(new, [t for t in tri._tracks if t in tri._done]))
+        d = [np.linalg.norm(out_map.points[p].position - by_pid[track_of[p]])
+             for p in out_map.point_ids()]
+        res["mvt_vs_map_median_m"] = float(np.median(d))
+    if not (res["fused_same_as_card"] and len(ids) >= 1000 and new):
+        raise RuntimeError(f"the library surface failed its checks: {res}")
+    return res
+
+
+def run_photos_phase(dev) -> dict:
+    """Phase 11: (a) the photographs and the grey reader, (b) PhotoScene
+    and run_slam over it, (c) training over the photo families and
+    ``--real_frac``, (d) real_eval, (e) Malaga's JPEG frames, (f) the
+    library surface on (b)'s map; each part raises on a failed check."""
+    import tempfile
+    from simpleslam_tpu_torch.tools import synth
+    res = {}
+    saved = synth.REAL_PHOTO_GLOB
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            res["reader"], pattern = run_photo_reader_part(dev, tmp)
+            res["reader"]["seconds"] = time.time() - t0
+            t0 = time.time()
+            res["scene"], system = run_photo_scene_part(dev, tmp)
+            res["scene"]["seconds"] = time.time() - t0
+            for name, fn in (
+                    ("train", lambda: run_photo_train_part(dev, tmp)),
+                    ("real_eval", lambda: run_real_eval_part(dev, pattern)),
+                    ("malaga", lambda: run_malaga_part(dev, tmp)),
+                    ("library", lambda: run_library_part(dev, system))):
+                t0 = time.time()
+                res[name] = fn()
+                res[name]["seconds"] = time.time() - t0
+        finally:
+            os.chdir(cwd)
+            synth.REAL_PHOTO_GLOB = saved
+    return res
+
+
 def main() -> None:
     t_all = time.time()
     import torch
@@ -3306,7 +3830,13 @@ def main() -> None:
     log("image_geometry", t0, nvidia_smi=smi,
         phase5b_frames_per_s=main_fps, **gres)
 
-    # 11. kernels ------------------------------------------------------------
+    # 11. photographs: reader, PhotoScene, training, real_eval, Malaga,
+    # the library surface ----------------------------------------------------
+    t0 = time.time()
+    pres = run_photos_phase(dev)
+    log("photos", t0, nvidia_smi=smi, **pres)
+
+    # 12. kernels ------------------------------------------------------------
     # the self-attention mix: float32 q, k and bf16 v, the main path's
     # heavier call (its cross-attention mix is in phase 3's and phase 6b's
     # lines)
@@ -3324,6 +3854,10 @@ def main() -> None:
         cres["lightglue_fused"]["attention_launches"],
         "launches_loop_stage":
         lres["main"][1]["attention_launches_loop_stage"],
+        "launches_photo_train": pres["train"]["launches_kernel"],
+        "launches_real_eval": pres["real_eval"]["attention_launches"],
+        "launches_per_match_call_real_eval":
+        pres["real_eval"]["launches_per_match_call"],
         "max_abs_err": max(kres["max_abs_err"].values()),
         "ms": t_self["kernel"]["ms"],
         "device_ms": t_self["kernel"]["device_ms"],
@@ -3340,6 +3874,7 @@ def main() -> None:
         "forward_source": "simpleslam_tpu_torch/csrc/masked_attention.cu",
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:98",
         "launches": tres["launches"],
+        "launches_photo_train": pres["train"]["launches"],
         "max_abs_err": tres["max_abs_err"],
         "ms": d_self["function_fwd_bwd"]["ms"],
         "device_ms": d_self["function_fwd_bwd"]["device_ms"],
@@ -3356,6 +3891,7 @@ def main() -> None:
         "source": "simpleslam_tpu_torch/csrc/masked_attention_bwd.cu",
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:109",
         "launches": tres["launches_bwd"],
+        "launches_photo_train": pres["train"]["launches_bwd"],
         "max_abs_err": tres["bwd_max_abs_err"],
         "ms": d_self["backward_kernel"]["ms"],
         "device_ms": d_self["backward_kernel"]["device_ms"],

@@ -9,10 +9,12 @@ without ``--headless``). Global BA (``gba_*``), loop closure (``loop_*``),
 the fused loop's rescue (``--fused_rescue_after``), saved and resumed
 state (``--save_state``, ``--resume``), localisation-only mode
 (``--localize_only``) and the keyframe thumbnails' ``--kf_thumb_hw`` are
-ported. Flags of the paths not yet ported (``--trace_dir``, ``--viz_ba``,
-``--merge_radius`` and the TPU package's mesh and padding knobs) and
-``--fps``, which nothing in the reference reads, are absent: the parser
-rejects them rather than ignore them. ``--matcher`` is
+ported. ``--merge_radius`` parses as in the reference, where no driver
+reads it either (``ops/triangulation.py::MultiViewTriangulator`` takes its
+own radius). Flags of the paths not yet ported (``--trace_dir``,
+``--viz_ba`` and the TPU package's mesh and padding knobs) and ``--fps``,
+which nothing in the reference reads, are absent: the parser rejects them
+rather than ignore them. ``--matcher`` is
 parsed and has no effect: ``bf`` and ``flann`` are both the brute-force
 matcher, as in the reference. ``--device`` (the port's own) chooses
 where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
@@ -67,6 +69,8 @@ class SLAMConfig:
     assoc_wide_factor: float = 2.5         # on PnP failure, retry association
                                            # with proj_radius * this; <= 1
                                            # disables
+    merge_radius: float = 0.10             # landmark fusion radius (the
+                                           # multi-view triangulator's)
 
     # local BA
     local_ba_window: int = 10

@@ -9,8 +9,9 @@ See the reference module for the behavioural contracts kept. Landmarks
 evicted from the fused loop's device map move to ``archived`` (positions
 and (keyframe, keypoint) pairs, no descriptors), where loop closure finds
 them; ``upsert_point`` serves the fused loop's sync.
-``fuse_closeby_duplicate_landmarks`` (multi-view triangulation) waits for
-the slice that reads it."""
+``fuse_closeby_duplicate_landmarks`` merges landmarks closer than a radius
+(``ops/triangulation.py::MultiViewTriangulator`` calls it), over a
+spatial hash of the positions (:func:`_pairs_within_radius`)."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -303,6 +304,33 @@ class Map:
     def __len__(self) -> int:
         return len(self._row)
 
+    # ---------------- Landmark fusion (parity semantics) --------------------
+    def fuse_closeby_duplicate_landmarks(self, radius: float = 0.05) -> None:
+        """Average-merge landmark pairs closer than ``radius``, greedily:
+        pairs sorted by (i, j) position in insertion order, the first point
+        takes the mean position, the second is removed, and pairs with a
+        removed point are skipped. Candidate pairs come from a spatial hash
+        grid (:func:`_pairs_within_radius`)."""
+        if len(self._row) < 2:
+            return
+        ids = list(self._row.keys())
+        rows = np.fromiter(self._row.values(), np.int64, len(ids))
+        pts = self._positions[rows]
+
+        pairs = _pairs_within_radius(pts, radius)
+
+        removed: set = set()
+        for i, j in pairs:
+            ida, idb = ids[i], ids[j]
+            if ida in removed or idb in removed:
+                continue
+            ra, rb = self._row[ida], self._row[idb]
+            self._positions[ra] = 0.5 * (self._positions[ra]
+                                         + self._positions[rb])
+            removed.add(idb)
+        for pid in removed:
+            self._remove_point(pid)
+
     # ---------------- padded snapshot export -----------------------------------
     def snapshot(self, capacity: int, desc_dim: int,
                  desc_dtype=np.float32) -> Dict[str, np.ndarray]:
@@ -336,3 +364,58 @@ class Map:
                 out["desc"][:n] = self._obs_desc[rows].astype(desc_dtype)
                 out["n_desc"][:n] = np.minimum(self._obs_count[rows], MAX_OBS_DESC)
         return out
+
+
+def k_of(c) -> int:
+    """The hash key of integer cell coordinates (3 x 21 bits, two's
+    complement per coordinate)."""
+    return int(((c[0] & 0x1FFFFF) << 42) | ((c[1] & 0x1FFFFF) << 21)
+               | (c[2] & 0x1FFFFF))
+
+
+def _pairs_within_radius(pts: np.ndarray, radius: float
+                         ) -> List[Tuple[int, int]]:
+    """All index pairs (i < j) with ||pts[i] - pts[j]|| < radius, sorted.
+
+    Spatial hash: points bucketed into cells of side ``radius``; candidates
+    are pairs in the same or adjacent cells, each cell pair visited once
+    through the half-neighbourhood (13 offsets and the cell itself)."""
+    cells = np.floor(pts / radius).astype(np.int64)
+    key = ((cells[:, 0] & 0x1FFFFF) << 42) | ((cells[:, 1] & 0x1FFFFF) << 21) \
+        | (cells[:, 2] & 0x1FFFFF)
+    order = np.argsort(key, kind="stable")
+    pairs: List[Tuple[int, int]] = []
+
+    offsets = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+               for dz in (-1, 0, 1) if (dx, dy, dz) >= (0, 0, 0)]
+
+    buckets: Dict[int, List[int]] = {}
+    for idx in order:
+        buckets.setdefault(int(key[idx]), []).append(int(idx))
+
+    r2 = radius * radius
+    for idxs in buckets.values():
+        base = np.asarray(idxs)
+        for off in offsets:
+            if off == (0, 0, 0):
+                if len(base) < 2:
+                    continue
+                d = pts[base][:, None, :] - pts[base][None, :, :]
+                dist2 = np.einsum("ijk,ijk->ij", d, d)
+                ii, jj = np.nonzero(np.triu(dist2 < r2, k=1))
+                pairs.extend(zip(base[ii].tolist(), base[jj].tolist()))
+            else:
+                c0 = cells[idxs[0]]
+                other = buckets.get(k_of((int(c0[0]) + off[0],
+                                          int(c0[1]) + off[1],
+                                          int(c0[2]) + off[2])))
+                if not other:
+                    continue
+                b = np.asarray(other)
+                d = pts[base][:, None, :] - pts[b][None, :, :]
+                dist2 = np.einsum("ijk,ijk->ij", d, d)
+                ii, jj = np.nonzero(dist2 < r2)
+                pairs.extend(
+                    (min(int(x), int(y)), max(int(x), int(y)))
+                    for x, y in zip(base[ii].tolist(), b[jj].tolist()))
+    return sorted(set(pairs))

@@ -17,8 +17,10 @@ pandas.
   rescaled to the frames' size) and :class:`Prefetcher` (decode, and
   optionally upload, ahead of the consumer on a thread).
 
-Frames are read by ``utils/png.py`` (8-bit PNG). JPEG (Malaga) has no
-decoder here: :func:`imread_bgr` raises ``NotImplementedError`` for it.
+Frames are read by ``utils/png.py`` (8-bit PNG). Other files (Malaga's
+JPEG frames) are read by cv2, imported when such a frame is read, as
+``cv2.imread(path, IMREAD_UNCHANGED)`` reads them in the reference; without
+cv2 :func:`imread_bgr` raises ``ImportError`` naming the file.
 """
 from __future__ import annotations
 
@@ -37,19 +39,23 @@ Frame = Union[str, np.ndarray]
 
 def imread_bgr(path: str) -> np.ndarray:
     """Read an image as BGR uint8 (BGRA where the PNG has alpha, as cv2's
-    ``IMREAD_UNCHANGED``); grey frames become BGR by channel copy."""
+    ``IMREAD_UNCHANGED``); grey frames become BGR by channel copy. PNG is
+    decoded here, anything else (JPEG) by cv2 at this call."""
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(b"\xff\xd8") or \
-            path.lower().endswith((".jpg", ".jpeg")):
-        raise NotImplementedError(
-            f"{path}: JPEG decoding is not ported (no JPEG decoder without "
-            "cv2 or PIL); convert the frames to PNG")
-    if not data.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
-    img = decode_png(data)
+    if data.startswith(SIGNATURE):
+        img = decode_png(data)
+    else:
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(f"{path}: only PNG frames are decoded without "
+                              "cv2; reading this one needs cv2") from e
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise FileNotFoundError(path)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
     return img

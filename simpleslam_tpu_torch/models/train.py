@@ -2,9 +2,11 @@
 the counterpart of ``simpleslam_tpu/models/train.py``.
 
 Pairs of views with exact dense correspondences -- procedural noise images
-warped by random homographies (:func:`synthetic_pair_batch`) and crops of
-rendered corridor views with raycast correspondences
-(:class:`ScenePairPool`) -- drive
+warped by random homographies (:func:`synthetic_pair_batch`), crops of
+rendered views (the corridor, box and photograph families) with raycast
+correspondences (:class:`ScenePairPool`) and photographs warped by random
+homographies (:class:`PhotoPairPool`, over :func:`train_photo_paths`) --
+drive
 
   * a descriptor InfoNCE loss at corresponding points, both directions,
   * a score repeatability loss and a peak-alignment loss (view 0's NMS
@@ -23,10 +25,8 @@ a ``torch.Generator`` or, where the reference uses numpy, an
 ``np.random.Generator`` in the reference's order) and a deterministic
 function of them, so the tests feed in what ``jax.random`` drew.
 
-Not ported: ``PhotoPairPool`` / ``train_photo_paths`` (they need the
-reference's photographs), scene families other than ``corridor``, and the
-sharded step (``shard_params_for_tp``, ``make_sharded_train_step``); see
-ROADMAP A.12.
+Not ported yet: the sharded step (``shard_params_for_tp``,
+``make_sharded_train_step``; ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -286,16 +286,46 @@ def synthetic_pair_batch(generator: torch.Generator, B: int, H: int, W: int,
 # Scene-pair batches (rendered corridor views, real parallax)
 # --------------------------------------------------------------------------- #
 
+def _pair_arrays(B: int, H: int, W: int, G: int) -> Dict[str, np.ndarray]:
+    """The zeroed arrays of a pair batch, in the layout of
+    :func:`synthetic_pair_batch` without Hmats."""
+    return dict(img0=np.zeros((B, H, W, 1), np.float32),
+                img1=np.zeros((B, H, W, 1), np.float32),
+                pts0=np.zeros((B, G, 2), np.float32),
+                pts1=np.zeros((B, G, 2), np.float32),
+                pt_valid=np.zeros((B, G), bool),
+                warp01=np.zeros((B, H, W, 2), np.float32),
+                warp_valid=np.zeros((B, H, W), bool))
+
+
+def _sample_points(rng: np.random.Generator, out: Dict[str, np.ndarray],
+                   b: int, in0: np.ndarray) -> None:
+    """Sample ``b``'s sparse correspondences: up to G view-0 pixels drawn
+    without replacement where the warp is valid inside the margin
+    ``in0``, with their warped positions (the reference's draw)."""
+    G, W = out["pts0"].shape[1], in0.shape[1]
+    cand = np.flatnonzero((out["warp_valid"][b] & in0).reshape(-1))
+    if len(cand):
+        sel = rng.choice(cand, size=min(G, len(cand)), replace=False)
+        k = len(sel)
+        out["pts0"][b, :k] = np.stack([(sel % W), (sel // W)], 1)
+        out["pts1"][b, :k] = out["warp01"][b].reshape(-1, 2)[sel]
+        out["pt_valid"][b, :k] = True
+
+
 class ScenePairPool:
-    """Views of rendered corridor scenes (image, raycast hit point, ray
-    depth); :meth:`batch` samples nearby-view pairs with exact,
+    """Views of rendered scenes (image, raycast hit point, ray depth), the
+    blocks alternating over ``families`` (``corridor``, ``boxes``,
+    ``photo``); :meth:`batch` samples nearby-view pairs with exact,
     occlusion-checked correspondences. The reference's K scaling,
-    trajectories and per-scene seeds; the views are rendered on ``device``
-    (None: the GPU) and kept on the host for :meth:`batch`, whose draws
-    follow the reference's order, so one ``np.random.Generator`` gives the
-    same crops, pairs and points. The reference's disk cache of rendered
-    blocks is dropped: a view renders on the card in milliseconds.
-    Only the ``corridor`` family is ported."""
+    trajectories and per-scene seeds; the photo family takes the training
+    photographs (:func:`train_photo_paths`). The views are rendered on
+    ``device`` (None: the GPU) and kept on the host for :meth:`batch`,
+    whose draws follow the reference's order, so one
+    ``np.random.Generator`` gives the same crops, pairs and points. The
+    reference's disk cache of rendered blocks is dropped: a view renders on
+    the card in milliseconds. An unknown family raises ``KeyError``, as the
+    reference's lookup does."""
 
     def __init__(self, hw, n_views: int = 160, seed: int = 0,
                  n_scenes: int = 4, render_hw=None,
@@ -303,11 +333,6 @@ class ScenePairPool:
         from simpleslam_tpu_torch.tools.synth import (DEFAULT_K,
                                                       SCENE_FAMILIES,
                                                       make_trajectory)
-        for fam in families:
-            if fam != "corridor":
-                raise NotImplementedError(
-                    f"scene family {fam!r} is not ported in the training "
-                    f"pool (it waits for ROADMAP A.7); use 'corridor'")
         H, W = hw
         Hr, Wr = render_hw if render_hw is not None else (H, W)
         if Hr < H or Wr < W:
@@ -327,8 +352,13 @@ class ScenePairPool:
             fam = families[sc % len(families)]
             T = make_trajectory(per, speed=float(rng.uniform(0.2, 0.8)),
                                 yaw_rate_deg=float(rng.uniform(0.0, 0.8)))
+            # the photo family's default photographs are the held-out
+            # split; training renders take the disjoint training half
+            fam_kw = {"photos": train_photo_paths()} if fam == "photo" \
+                else {}
             scene = SCENE_FAMILIES[fam](seed=seed + sc, hw=(Hr, Wr), K=K,
-                                        device=resolve_device(device))
+                                        device=resolve_device(device),
+                                        **fam_kw)
             for i in range(per):
                 img, hit, t = scene.render_with_geometry(T[i])
                 imgs.append(img.cpu().numpy())
@@ -359,13 +389,9 @@ class ScenePairPool:
         H, W = self.hw
         Hr, Wr = self.render_hw
         K = self.K
-        img0 = np.zeros((B, H, W, 1), np.float32)
-        img1 = np.zeros((B, H, W, 1), np.float32)
-        pts0 = np.zeros((B, G, 2), np.float32)
-        pts1 = np.zeros((B, G, 2), np.float32)
-        valid = np.zeros((B, G), bool)
-        warp01 = np.zeros((B, H, W, 2), np.float32)
-        warp_valid = np.zeros((B, H, W), bool)
+        out = _pair_arrays(B, H, W, G)
+        img0, img1, warp01, warp_valid = (out[k] for k in (
+            "img0", "img1", "warp01", "warp_valid"))
         m = MARGIN
         yy, xx = np.mgrid[0:H, 0:W]
         in0 = (xx >= m) & (xx < W - m) & (yy >= m) & (yy < H - m)
@@ -423,16 +449,131 @@ class ScenePairPool:
             warp01[b] = np.stack([u1, v1], 1).reshape(H, W, 2)
             warp_valid[b] = (vis & in_crop1).reshape(H, W)
 
-            # sparse correspondences from the valid warp field
-            cand = np.flatnonzero((warp_valid[b] & in0).reshape(-1))
-            if len(cand):
-                sel = rng.choice(cand, size=min(G, len(cand)), replace=False)
-                k = len(sel)
-                pts0[b, :k] = np.stack([(sel % W), (sel // W)], 1)
-                pts1[b, :k] = warp01[b].reshape(-1, 2)[sel]
-                valid[b, :k] = True
-        return dict(img0=img0, img1=img1, pts0=pts0, pts1=pts1,
-                    pt_valid=valid, warp01=warp01, warp_valid=warp_valid)
+            _sample_points(rng, out, b, in0)
+        return out
+
+
+class PhotoPairPool:
+    """Homography pairs over photographs (the training half,
+    :func:`train_photo_paths`): real sensor statistics that the renderer
+    cannot make. Each sample is a random (H, W) crop of a random photograph
+    at one of its pre-scales (halvings by ``INTER_AREA``), warped by a
+    random homography (:meth:`_random_h`), with the exact dense
+    correspondence field; the dict layout of :class:`ScenePairPool`.
+    :meth:`batch` draws from the generator in the reference's order, so
+    one ``np.random.Generator`` gives the reference's crops, homographies
+    and points. The photographs are read and normalised on the host; each
+    batch's warps run on ``device`` (None: the GPU), one upload and one
+    read-back a batch."""
+
+    def __init__(self, hw, paths, seed: int = 0, device=None):
+        from simpleslam_tpu_torch.utils.imgproc import imread_gray
+        self.device = resolve_device(device)
+        H, W = hw
+        self.hw = (int(H), int(W))
+        self.imgs = []
+        for p in paths:
+            img = imread_gray(p)
+            if img is None:
+                continue
+            img = img.astype(np.float32)
+            # per-photo contrast normalisation, in the reference's numpy
+            # expression (its dtype follows numpy's promotion rules)
+            lo, hi = np.percentile(img, [2, 98])
+            img = np.clip((img - lo) / max(hi - lo, 1.0), 0.0, 1.0)
+            # pre-scales: the pipeline's texture scale varies with depth
+            pyr = [img]
+            for _ in range(2):
+                if min(pyr[-1].shape) < 2 * min(H, W):
+                    break
+                pyr.append(resize_area(
+                    torch.from_numpy(pyr[-1]),
+                    (pyr[-1].shape[0] // 2, pyr[-1].shape[1] // 2)).numpy())
+            self.imgs.extend(p2 for p2 in pyr
+                             if p2.shape[0] >= H + 8 and p2.shape[1] >= W + 8)
+        if not self.imgs:
+            raise FileNotFoundError("PhotoPairPool: no usable photos")
+
+    @staticmethod
+    def _random_h(rng: np.random.Generator, H: int, W: int,
+                  mag: float = 0.15) -> np.ndarray:
+        """Corner-jitter homography composed with a random similarity
+        (rotation up to 15 degrees, scale exp(+-0.22)) about the crop
+        centre, float64."""
+        from simpleslam_tpu_torch.utils.imgproc import (
+            get_perspective_transform, get_rotation_matrix_2d)
+        c0 = np.float32([[0, 0], [W - 1, 0], [0, H - 1], [W - 1, H - 1]])
+        c1 = c0 + rng.uniform(-mag, mag, (4, 2)).astype(np.float32) \
+            * np.float32([W, H])
+        Hm = get_perspective_transform(c0, c1)
+        ang = rng.uniform(-15.0, 15.0)
+        s = float(np.exp(rng.uniform(-0.22, 0.22)))
+        S = np.eye(3)
+        S[:2] = get_rotation_matrix_2d((W / 2.0, H / 2.0), ang, s)
+        return (S @ Hm).astype(np.float64)
+
+    def batch(self, rng: np.random.Generator, B: int, G: int
+              ) -> Dict[str, np.ndarray]:
+        """Warped-crop pairs (numpy), the layout of
+        :meth:`ScenePairPool.batch`."""
+        from simpleslam_tpu_torch.utils.imgproc import warp_perspective
+        H, W = self.hw
+        out = _pair_arrays(B, H, W, G)
+        img0, img1, warp01, warp_valid = (out[k] for k in (
+            "img0", "img1", "warp01", "warp_valid"))
+        m = MARGIN
+        yy, xx = np.mgrid[0:H, 0:W]
+        in0 = (xx >= m) & (xx < W - m) & (yy >= m) & (yy < H - m)
+        grid = np.stack([xx, yy, np.ones_like(xx)], -1).reshape(-1, 3) \
+            .astype(np.float64)
+        crops, mats = [], []
+        for b in range(B):
+            src = self.imgs[int(rng.integers(0, len(self.imgs)))]
+            oy = int(rng.integers(0, src.shape[0] - H + 1))
+            ox = int(rng.integers(0, src.shape[1] - W + 1))
+            crop = src[oy:oy + H, ox:ox + W]
+            Hm = self._random_h(rng, H, W)
+            img0[b, ..., 0] = crop
+            crops.append(crop)
+            mats.append(Hm.astype(np.float32))
+            q = grid @ Hm.T
+            uv = q[:, :2] / np.maximum(np.abs(q[:, 2:3]), 1e-9) \
+                * np.sign(q[:, 2:3])
+            warp01[b] = uv.reshape(H, W, 2).astype(np.float32)
+            wv = ((uv[:, 0] >= m) & (uv[:, 0] < W - m)
+                  & (uv[:, 1] >= m) & (uv[:, 1] < H - m)).reshape(H, W)
+            warp_valid[b] = wv
+            _sample_points(rng, out, b, in0)
+        # the warps draw nothing: all of them on the device at once
+        dev_crops = torch.from_numpy(np.stack(crops)).to(self.device)
+        img1[..., 0] = torch.stack([
+            warp_perspective(dev_crops[b], mats[b], (W, H))
+            for b in range(B)]).cpu().numpy()
+        return out
+
+
+def train_photo_paths() -> list:
+    """The training photographs: the odd-indexed half of
+    ``tools/synth.py::REAL_PHOTO_GLOB``'s sorted matches, plus matplotlib's
+    ``grace_hopper.jpg`` where matplotlib is installed. The even half is
+    held out for evaluation (``PhotoScene``'s default textures,
+    ``tools/real_eval.py --split heldout``)."""
+    import glob as globmod
+    import os
+
+    from simpleslam_tpu_torch.tools import synth
+
+    paths = sorted(globmod.glob(synth.REAL_PHOTO_GLOB))[1::2]
+    try:
+        import matplotlib
+
+        gh = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data",
+                          "sample_data", "grace_hopper.jpg")
+        if os.path.exists(gh):
+            paths.append(gh)
+    except Exception:
+        pass
+    return paths
 
 
 def photometric_augment(rng: np.random.Generator,

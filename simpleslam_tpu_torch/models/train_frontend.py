@@ -11,8 +11,13 @@ runs on the CPU). ``--init_from`` warm-starts from the repository's orbax
 tree or from a ``.npz`` this CLI wrote. The weights are written as one
 ``.npz`` of flax paths (``models/checkpoint.py::save_npz_tree``, no orbax),
 ``checkpoints/learned_frontend_torch.npz`` by default; point
-``SLAM_FRONTEND_CKPT`` at it to serve it. ``--real_frac > 0`` (the
-reference's photograph pairs) is not ported.
+``SLAM_FRONTEND_CKPT`` at it to serve it. ``--families`` alternates the
+scene pool's blocks over ``corridor``, ``boxes`` and ``photo``;
+``--real_frac`` trains that share of the steps on homography pairs over
+the training photographs (``train.PhotoPairPool``). Each step draws its
+pool as the reference does: with ``u`` uniform, the photographs where
+``u < real_frac``, else the scene pool where ``u < real_frac + (1 -
+real_frac) * scene_frac``, else the synthetic homography pairs.
 """
 from __future__ import annotations
 
@@ -52,12 +57,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "random --hw crops (e.g. 376 1232 for KITTI)")
     p.add_argument("--families", default="corridor",
                    help="comma-separated scene families for the pair pool "
-                        "(only corridor is ported)")
+                        "(corridor,boxes,photo), alternated across scene "
+                        "blocks")
     p.add_argument("--scenes", type=int, default=4,
                    help="number of scene blocks in the pair pool")
     p.add_argument("--real_frac", type=float, default=0.0,
                    help="fraction of steps on homography pairs over real "
-                        "photographs (not ported: must be 0)")
+                        "photographs (train.PhotoPairPool over "
+                        "train.train_photo_paths)")
     p.add_argument("--init_from", default=None,
                    help="warm-start from an orbax checkpoint directory or a "
                         ".npz written by this CLI (same pinned topology)")
@@ -69,8 +76,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None, history: Optional[List[dict]] = None) -> int:
     """Train and write the weights. With ``history``, one record per step
-    is appended to it: ``batch_s`` (host seconds building the batch),
-    ``step_ms`` (CUDA events around the step on the GPU, else the host
+    is appended to it: ``source`` (the pool the step drew: ``photo``,
+    ``scene`` or ``synthetic``), ``batch_s`` (host seconds building the
+    batch), ``step_ms`` (CUDA events around the step on the GPU, else the host
     clock) and the step's loss terms."""
     a = parse_args(argv)
     from simpleslam_tpu_torch.models import checkpoint
@@ -81,10 +89,6 @@ def main(argv=None, history: Optional[List[dict]] = None) -> int:
     from simpleslam_tpu_torch.utils.rng import TorchKey
 
     device = resolve_device(a.device)
-    if a.real_frac > 0:
-        raise NotImplementedError(
-            "--real_frac > 0: PhotoPairPool is not ported (it needs the "
-            "reference's photographs; ROADMAP A.12)")
     H, W = a.hw
     state_dicts = None
     if a.init_from:
@@ -105,15 +109,27 @@ def main(argv=None, history: Optional[List[dict]] = None) -> int:
                                    render_hw=rhw, n_scenes=a.scenes,
                                    families=tuple(a.families.split(",")),
                                    device=device)
+    photo_pool = None
+    if a.real_frac > 0:
+        photo_pool = train_mod.PhotoPairPool(
+            (H, W), train_mod.train_photo_paths(), seed=a.seed, device=device)
+        print(f"real-photo pool: {len(photo_pool.imgs)} images/pre-scales "
+              f"({a.real_frac:.0%} of steps)", flush=True)
     rng = np.random.default_rng(a.seed + 2)
     key = TorchKey(a.seed + 1)
     cuda = device.type == "cuda"
     t0 = time.perf_counter()
     for i in range(a.steps):
         tb = time.perf_counter()
-        if rng.random() < a.scene_frac:
+        u = rng.random()
+        if photo_pool is not None and u < a.real_frac:
+            source = "photo"
+            batch = photo_pool.batch(rng, a.batch, a.points)
+        elif u < a.real_frac + (1.0 - a.real_frac) * a.scene_frac:
+            source = "scene"
             batch = pool.batch(rng, a.batch, a.points)
         else:
+            source = "synthetic"
             g = torch.Generator(device=device).manual_seed(
                 key.fold_in(i).state & ((1 << 63) - 1))
             batch = train_mod.synthetic_pair_batch(g, a.batch, H, W, a.points)
@@ -121,7 +137,7 @@ def main(argv=None, history: Optional[List[dict]] = None) -> int:
                      if k != "Hmats"}
         batch = train_mod.batch_to_device(
             train_mod.photometric_augment(rng, batch), device)
-        rec = {"batch_s": time.perf_counter() - tb}
+        rec = {"batch_s": time.perf_counter() - tb, "source": source}
         if history is not None and cuda:
             rec["events"] = [torch.cuda.Event(enable_timing=True)
                              for _ in range(2)]

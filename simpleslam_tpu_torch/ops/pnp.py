@@ -1,11 +1,16 @@
 """Frame-to-map tracking ops: constant-velocity prediction, windowed 2D-3D
 descriptor association and PnP-RANSAC with Gauss-Newton refinement (the
-counterpart of ``simpleslam_tpu/ops/pnp.py``; the host-API helpers are not
-ported).
+counterpart of ``simpleslam_tpu/ops/pnp.py``), and the reference's
+host-API helpers over numpy inputs (``project_points_wc``,
+``associate_landmarks``, ``refine_pose_pnp``,
+``reproject_and_match_2d3d_host``, ``draw_reprojection_debug``), which
+compute on ``device`` (None: the GPU).
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +21,9 @@ from simpleslam_tpu_torch.ops.matching import unpack_bits
 from simpleslam_tpu_torch.ops.p3p import p3p_grunert
 from simpleslam_tpu_torch.ops.projection import project_points
 from simpleslam_tpu_torch.ops.ransac import sample_minimal_sets
+from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.precision import highest_precision
+from simpleslam_tpu_torch.utils.rng import TorchKey
 
 _INF = 1e9
 
@@ -247,3 +254,145 @@ def solve_pnp_ransac(key, pts3d: torch.Tensor, uv: torch.Tensor,
         inl_out = torch.where(better, inl_cur, inl_out)
     n = inl_out.sum()
     return T_out, inl_out, n, n >= 4
+
+
+# --------------------------------------------------------------------------- #
+# Host-API helpers (the reference's signatures, numpy in and out)
+# --------------------------------------------------------------------------- #
+
+def project_points_wc(K, pose_w_c, pts_w, device=None) -> np.ndarray:
+    """Project world points with a camera-to-world pose, in float32 on
+    ``device``; points behind the camera read (-1, -1)."""
+    pts_w = np.asarray(pts_w, np.float64)
+    if pts_w.size == 0:
+        return np.empty((0, 2), np.float32)
+    dev = resolve_device(device)
+    Tcw = se3.T_inverse(torch.as_tensor(np.asarray(pose_w_c, np.float32),
+                                        device=dev))
+    uv, _z, front = project_points(
+        torch.as_tensor(pts_w.astype(np.float32), device=dev), Tcw,
+        torch.as_tensor(np.asarray(K, np.float32), device=dev))
+    uv = uv.cpu().numpy().astype(np.float32)
+    uv[~front.cpu().numpy()] = -1.0
+    return uv
+
+
+def associate_landmarks(K, pose_w_c, pts_w, kps_cur, search_rad: float = 5.0,
+                        device=None):
+    """Greedy nearest-keypoint association within ``search_rad`` pixels,
+    landmark by landmark: (pts3d (M, 3), pts2d (M, 2), keypoint ids)."""
+    pts_w = np.asarray(pts_w, np.float32)
+    kp_xy = np.asarray([k.pt if hasattr(k, "pt") else k for k in kps_cur],
+                       np.float32).reshape(-1, 2)
+    if pts_w.size == 0 or kp_xy.size == 0:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32), [])
+
+    proj = project_points_wc(K, pose_w_c, pts_w, device=device)
+    used = np.zeros(len(kp_xy), bool)
+    p3, p2, ids = [], [], []
+    for i, uv in enumerate(proj):
+        if uv[0] < 0 or uv[1] < 0:
+            continue
+        d = np.linalg.norm(kp_xy - uv, axis=1)
+        d[used] = np.inf
+        best = int(np.argmin(d))
+        if d[best] > search_rad:
+            continue
+        used[best] = True
+        p3.append(pts_w[i])
+        p2.append(kp_xy[best])
+        ids.append(best)
+    if not p3:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32), [])
+    return np.asarray(p3, np.float32), np.asarray(p2, np.float32), ids
+
+
+def refine_pose_pnp(K, pts3d, pts2d, ransac_px: float = 2.0, key=None,
+                    device=None):
+    """World-to-camera (R, t) from 2D-3D pairs by :func:`solve_pnp_ransac`
+    (128 P3P hypotheses) on ``device``, or (None, None) with fewer than 4
+    pairs or no pose. ``key`` draws the minimal sets (``utils/rng.py``'s
+    interface; default ``TorchKey(0)``, in place of the reference's
+    ``PRNGKey(0)``)."""
+    pts3d = np.asarray(pts3d, np.float32)
+    pts2d = np.asarray(pts2d, np.float32)
+    if len(pts3d) < 4 or len(pts2d) < 4:
+        return None, None
+    dev = resolve_device(device)
+    T, _inl, _n, ok = solve_pnp_ransac(
+        key if key is not None else TorchKey(0),
+        torch.as_tensor(pts3d, device=dev), torch.as_tensor(pts2d, device=dev),
+        torch.ones(len(pts3d), dtype=torch.bool, device=dev),
+        torch.as_tensor(np.asarray(K, np.float32), device=dev),
+        float(ransac_px), n_hyp=128)
+    if not bool(ok):
+        return None, None
+    T = T.cpu().numpy().astype(np.float64)
+    return T[:3, :3], T[:3, 3]
+
+
+class Matches2D3D(NamedTuple):
+    """Compact 2D-3D association: world points, matched pixels, keypoint
+    indices, landmark ids."""
+    pts3d: np.ndarray
+    pts2d: np.ndarray
+    kp_indices: list
+    mp_ids: list
+
+
+def reproject_and_match_2d3d_host(world_map, K, Tcw_pred, feats,
+                                  img_w: int, img_h: int, *,
+                                  radius_px: float = 12.0,
+                                  max_hamm: float = 64.0,
+                                  max_l2: float = 0.8,
+                                  capacity: int = 0) -> Matches2D3D:
+    """:func:`reproject_and_match_2d3d` over a host ``Map`` and padded
+    ``Features`` (on the features' device), returned compact."""
+    dev = feats.kpts.device
+    desc = feats.desc
+    cap = capacity or max(1024, 1 << (len(world_map) - 1).bit_length())
+    np_dtype = np.uint8 if desc.dtype == torch.uint8 else np.float32
+    snap = world_map.snapshot(cap, desc.shape[1], np_dtype)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    out = reproject_and_match_2d3d(
+        t(snap["positions"]), t(snap["alive"]), t(snap["desc"]),
+        t(snap["n_desc"]), feats.kpts, feats.desc, feats.valid,
+        t(np.asarray(K, np.float32)), t(np.asarray(Tcw_pred, np.float32)),
+        img_w=int(img_w), img_h=int(img_h), radius_px=radius_px,
+        max_hamm=max_hamm, max_l2=max_l2)
+    valid = out.valid.cpu().numpy()
+    kp_idx = out.kp_idx.cpu().numpy()
+    rows = np.flatnonzero(valid)
+    kpts = feats.kpts.cpu().numpy()
+    return Matches2D3D(
+        pts3d=snap["positions"][rows].astype(np.float32),
+        pts2d=kpts[kp_idx[rows]].astype(np.float32),
+        kp_indices=[int(k) for k in kp_idx[rows]],
+        mp_ids=[int(p) for p in snap["pid"][rows]])
+
+
+def draw_reprojection_debug(img, uv_meas, uv_proj, inlier_mask=None):
+    """Measured (green) against projected (red) keypoints joined by lines,
+    drawn on a BGR copy of ``img`` with cv2 (imported here); without cv2
+    the copy is returned undrawn."""
+    try:
+        import cv2
+    except Exception:
+        return np.asarray(img).copy()
+    out = np.asarray(img)
+    if out.ndim == 2:
+        out = np.repeat(out[..., None], 3, axis=2)
+    out = out.copy()
+    uv_meas = np.asarray(uv_meas)
+    uv_proj = np.asarray(uv_proj)
+    for i, (m, p) in enumerate(zip(uv_meas, uv_proj)):
+        ok = inlier_mask[i] if inlier_mask is not None else True
+        pm = tuple(int(v) for v in m)
+        pp = tuple(int(v) for v in p)
+        cv2.circle(out, pm, 2, (0, 255, 0) if ok else (128, 128, 128), -1)
+        cv2.circle(out, pp, 2, (0, 0, 255), -1)
+        cv2.line(out, pm, pp, (0, 200, 255), 1)
+    return out

@@ -169,10 +169,11 @@ def remap_bilinear(img: torch.Tensor, mapx: torch.Tensor,
     (H, W, C) sampled at the (H', W') source coordinates ``mapx``,
     ``mapy``. Each of the four taps outside the image reads 0 on its own.
     A uint8 image comes back uint8, rounded half to even; any other dtype
-    comes back in its own dtype."""
+    comes back in its own dtype (a float64 image is sampled in float64)."""
     H, W = img.shape[0], img.shape[1]
     chan = img.dim() == 3
-    imgf = img.float() if chan else img.float()[..., None]
+    imgf = img if img.dtype == torch.float64 else img.float()
+    imgf = imgf if chan else imgf[..., None]
     x0 = torch.floor(mapx)
     y0 = torch.floor(mapy)
     fx = (mapx - x0)[..., None]

@@ -1,14 +1,16 @@
 """Synthetic sequences (the counterpart of the corridor and box scenes of
 ``simpleslam_tpu/tools/synth.py``).
 
-Two raycast scene families: a textured corridor (ground plane, two walls,
-a high ceiling and a far wall, all static world geometry) and a box field
-(a textured ground plane and axis-aligned boxes under a flat sky, the
-reference's held-out family and its loop-closure fixture), rendered along
-a smooth KITTI-like trajectory or a closed lap. The texture is a fixed sum
-of random 3-D sinusoids (the boxes add hard-edged square waves) evaluated
-at the hit points, anti-aliased per pixel, so appearance is consistent
-across views: real parallax and stable descriptors.
+Three raycast scene families: a textured corridor (ground plane, two
+walls, a high ceiling and a far wall, all static world geometry), a box
+field (a textured ground plane and axis-aligned boxes under a flat sky,
+the reference's held-out family and its loop-closure fixture) and the
+corridor's geometry textured with photographs (``PhotoScene``), rendered
+along a smooth KITTI-like trajectory or a closed lap. The procedural
+texture is a fixed sum of random 3-D sinusoids (the boxes add hard-edged
+square waves) evaluated at the hit points, anti-aliased per pixel, so
+appearance is consistent across views: real parallax and stable
+descriptors.
 
 Each frame is one torch expression on the scene's device: the ray
 geometry in float64, the (H, W, n_waves) texture in float32, as the
@@ -22,10 +24,10 @@ and ``kitti/05/calib.txt`` for the ``crop`` camera) with
 ``utils/png.py``; ``main`` is its CLI:
 
     python -m simpleslam_tpu_torch.tools.synth --out D --frames 40 \
-        [--device cpu]
+        [--scene corridor|boxes|photo] [--device cpu]
 
-Not ported yet: ``PhotoScene`` (the ``--scene`` choices are the families
-of ``SCENE_FAMILIES``).
+``--scene photo`` reads its photographs through ``REAL_PHOTO_GLOB`` (the
+environment's ``SLAM_PHOTO_GLOB``); the repository carries none.
 """
 from __future__ import annotations
 
@@ -355,7 +357,177 @@ class BoxScene:
                             torch.full_like(t_best, float("inf"))))
 
 
-SCENE_FAMILIES = {"corridor": CorridorScene, "boxes": BoxScene}
+# The reference project's photographs (its webcam calibration frames) sit
+# at ``config/calibrate_camera/images`` of its checkout; this repository
+# does not carry them. ``SLAM_PHOTO_GLOB`` points the port elsewhere.
+REAL_PHOTO_GLOB = os.environ.get("SLAM_PHOTO_GLOB", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "config", "calibrate_camera", "images", "*.png"))
+
+
+def _default_photo_set():
+    """The held-out photographs for :class:`PhotoScene`'s textures: the
+    even-indexed half of ``REAL_PHOTO_GLOB``'s sorted matches (the odd half
+    is the training set, ``models/train.py::train_photo_paths``)."""
+    import glob as globmod
+
+    return sorted(globmod.glob(REAL_PHOTO_GLOB))[::2]
+
+
+class PhotoScene:
+    """The corridor's geometry (ground, two walls, a high ceiling and a far
+    wall) textured with photographs: a mip-mapped bilinear lookup of one
+    photograph per plane, mirror-tiled every ``TILE_M`` metres. Same
+    raycast API as :class:`CorridorScene`: ``render`` /
+    ``render_with_geometry`` -> (uint8 image, (H, W, 3) hit points, (H, W)
+    depth, inf where no plane is hit).
+
+    ``photos``: the image paths (default :func:`_default_photo_set`), read
+    in the order of a permutation drawn from ``seed`` as the reference
+    draws it. Each is contrast-normalised and blurred into its mip levels
+    on the host (numpy's percentiles, ``utils/imgproc.py``'s blur in the
+    dtype numpy's arithmetic gives), then uploaded once; frames render on
+    ``device`` (None: the GPU), the geometry in float64."""
+
+    #: metres of wall covered by one photo tile (mirror-tiled beyond)
+    TILE_M = 8.0
+    MIP_LEVELS = 5
+
+    def __init__(self, seed: int = 0, ground_y: float = 1.6,
+                 wall_x: float = 10.0, hw: Tuple[int, int] = DEFAULT_HW,
+                 K: np.ndarray = DEFAULT_K, photos=None, device=None):
+        from simpleslam_tpu_torch.utils.imgproc import (gaussian_blur,
+                                                        imread_gray)
+        self.device = resolve_device(device)
+        paths = photos or _default_photo_set()
+        if not paths:
+            raise FileNotFoundError("PhotoScene: no real photos available")
+        rng = np.random.default_rng(seed)
+        order = rng.permutation(len(paths))
+        self._pyramids = []
+        for i in order:
+            img = imread_gray(paths[i])
+            if img is None:
+                continue
+            img = img.astype(np.float32)
+            # per-photo contrast normalisation, in the reference's numpy
+            # expression (its result dtype follows numpy's promotion rules)
+            lo, hi = np.percentile(img, [2, 98])
+            img = np.clip((img - lo) * (235.0 / max(hi - lo, 1.0)) + 10.0,
+                          0, 255)
+            pyr = [torch.from_numpy(np.ascontiguousarray(img))]
+            for _l in range(self.MIP_LEVELS - 1):
+                pyr.append(gaussian_blur(pyr[-1], 2.0 ** len(pyr) * 0.5))
+            self._pyramids.append(torch.stack(pyr).to(self.device))
+        if not self._pyramids:
+            raise FileNotFoundError("PhotoScene: photos failed to load")
+        self.ground_y = ground_y
+        self.wall_x = wall_x
+        self.hw = hw
+        self.K = np.asarray(K, np.float64)
+        H, W = hw
+        u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                           np.arange(H, dtype=np.float64))
+        rays = np.stack([u, v, np.ones_like(u)], -1) @ \
+            np.linalg.inv(self.K).T
+        rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+        self._rays_cam = torch.as_tensor(rays, device=self.device)
+
+    def _sample_photo(self, idx: int, pu: torch.Tensor, pv: torch.Tensor,
+                      footprint: torch.Tensor) -> torch.Tensor:
+        """Mip-mapped bilinear lookup of photo ``idx`` at in-plane world
+        coordinates (pu, pv) in metres; ``footprint`` is the pixel's size on
+        the surface in metres. The level is the nearest integer of log2 of
+        the footprint in texels, half to even as ``np.rint``."""
+        stack = self._pyramids[idx % len(self._pyramids)]     # (LVL, h, w)
+        h, w = stack.shape[1], stack.shape[2]
+        texel = self.TILE_M / w
+        lvl = torch.log2(torch.clamp(footprint, min=1e-9) / texel)
+        lvl = torch.clamp(torch.round(lvl), 0, stack.shape[0] - 1).long()
+        x = pu / texel
+        y = pv / (self.TILE_M * h / w) * h
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx2 = (x - x0).float()
+        fy2 = (y - y0).float()
+        x0, y0 = x0.long(), y0.long()
+
+        def mirror(i, n):
+            m = torch.remainder(i, 2 * n)
+            return torch.where(m < n, m, 2 * n - 1 - m)
+
+        out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        wsum = ((1 - fx2) * (1 - fy2), fx2 * (1 - fy2),
+                (1 - fx2) * fy2, fx2 * fy2)
+        offs = ((0, 0), (1, 0), (0, 1), (1, 1))
+        flat = stack.reshape(-1)
+        for (dx, dy), wgt in zip(offs, wsum):
+            xi = mirror(x0 + dx, w)
+            yi = mirror(y0 + dy, h)
+            vals = flat[(lvl * h + yi) * w + xi]
+            # numpy's in-place ``out += wgt * vals``: the product and the
+            # sum in the stack's dtype, stored as float32
+            out = (out.to(stack.dtype) + wgt.to(stack.dtype) * vals).float()
+        return out
+
+    def render(self, T_wc: np.ndarray) -> torch.Tensor:
+        """(H, W) uint8 image on the scene's device."""
+        return self.render_with_geometry(T_wc)[0]
+
+    @torch.no_grad()
+    def render_with_geometry(self, T_wc: np.ndarray):
+        """(image u8 (H,W), hit world points (H,W,3), ray depth (H,W);
+        pixels that hit no plane have depth inf and hit point 0)."""
+        T = torch.as_tensor(np.asarray(T_wc, np.float64), device=self.device)
+        C = T[:3, 3]
+        d = self._rays_cam @ T[:3, :3].T
+        H, W = self.hw
+        eps = 1e-9
+        t_best = torch.full((H, W), float("inf"), dtype=torch.float64,
+                            device=self.device)
+        hit = torch.zeros((H, W, 3), dtype=torch.float64, device=self.device)
+        img = torch.full((H, W), 230.0, dtype=torch.float32,
+                         device=self.device)
+        inv_f = 1.0 / float(self.K[0, 0])
+
+        def plane(axis: int, value: float, positive: bool, photo_idx: int):
+            nonlocal t_best, hit, img
+            denom = d[..., axis]
+            t = (value - C[axis]) / torch.where(denom.abs() < eps,
+                                                torch.full_like(denom, eps),
+                                                denom)
+            facing = denom > 0 if positive else denom < 0
+            ok = (t > 0.2) & facing & (t < t_best)
+            p = C + t[..., None] * d
+            # footprint on the surface: depth / f, widened by the grazing
+            # smear (the bound the EWA families use)
+            d_perp = d.clone()
+            d_perp[..., axis] = 0.0
+            fp = t * inv_f * (1.0 + torch.clamp(
+                torch.linalg.norm(d_perp, dim=-1)
+                / torch.clamp(denom.abs(), min=1e-3), max=25.0))
+            a0, a1 = [a for a in range(3) if a != axis]
+            tex = self._sample_photo(photo_idx, p[..., a0], p[..., a1], fp)
+            t_best = torch.where(ok, t, t_best)
+            hit = torch.where(ok[..., None], p, hit)
+            img = torch.where(ok, tex, img)
+
+        plane(1, self.ground_y, True, 0)                     # ground
+        plane(0, self.wall_x, True, 1)                       # right wall
+        plane(0, -self.wall_x, False, 2)                     # left wall
+        plane(1, -3.0 * self.wall_x, False, 3)               # ceiling
+        far_z = float(np.floor(float(T_wc[2][3]) / 10.0) * 10.0 + 200.0)
+        plane(2, far_z, True, 4)                             # far wall
+
+        shade = 1.0 / (1.0 + 0.004 * torch.clamp(torch.where(
+            torch.isfinite(t_best), t_best, torch.full_like(t_best, 200.0)),
+            0, 200))
+        out = torch.clamp(img.double() * shade, 0, 255).to(torch.uint8)
+        return out, hit, t_best
+
+
+SCENE_FAMILIES = {"corridor": CorridorScene, "boxes": BoxScene,
+                  "photo": PhotoScene}
 
 
 def render_sequence(family: str, seed: int, hw, K, n_frames: int,
@@ -395,7 +567,7 @@ def generate_kitti_sequence(out_dir: str, n_frames: int = 60, seed: int = 0,
         else:
             T_wc = make_loop_trajectory(n_frames, speed=speed,
                                         closure_frac=closure_frac)
-        if scene == "corridor":
+        if scene in ("corridor", "photo"):
             scene_kw["wall_x"] = float(
                 max(10.0, np.abs(T_wc[:, 0, 3]).max() + 6.0))
         else:
@@ -414,9 +586,6 @@ def generate_kitti_sequence(out_dir: str, n_frames: int = 60, seed: int = 0,
     else:
         Ks[0] *= W / DEFAULT_HW[1]
         Ks[1] *= H / DEFAULT_HW[0]
-    if scene not in SCENE_FAMILIES:
-        raise NotImplementedError(
-            f"scene {scene!r} is not ported (have {sorted(SCENE_FAMILIES)})")
     sc = SCENE_FAMILIES[scene](seed=seed, hw=tuple(hw), K=Ks, device=device,
                                **scene_kw)
 

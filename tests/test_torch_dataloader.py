@@ -174,15 +174,17 @@ def test_tum_sequence_equals_reference(tmp_path):
 
 def test_malaga_gps_groundtruth_equals_reference(tmp_path):
     """Malaga's GPS log (pandas in the reference, numpy here): the frames
-    trimmed to the log's interval, positions interpolated and remapped."""
+    trimmed to the log's interval, positions interpolated and remapped;
+    its JPEG frames read as ``cv2.imread`` reads them."""
     pytest.importorskip("pandas")
     prefix = tmp_path / "malaga"
     img_dir = prefix / \
         "malaga-urban-dataset-extract-07_rectified_800x600_Images"
     img_dir.mkdir(parents=True)
-    rng = np.random.default_rng(6)
+    rng, pix = np.random.default_rng(6), np.random.default_rng(60)
     for t in 100.0 + np.arange(8) * 0.25:
-        (img_dir / f"img_CAMERA1_{t:.6f}_left.jpg").write_bytes(b"\xff\xd8")
+        cv2.imwrite(str(img_dir / f"img_CAMERA1_{t:.6f}_left.jpg"),
+                    pix.integers(0, 256, (12, 16, 3), np.uint8))
     rows = ["% GPS log", "% columns ..."]
     for t in 100.3 + np.arange(9) * 0.2:
         vals = rng.normal(size=25)
@@ -200,8 +202,10 @@ def test_malaga_gps_groundtruth_equals_reference(tmp_path):
     assert np.array_equal(got, want)
     assert np.array_equal(dataloader.load_groundtruth(args),
                           jdl.load_groundtruth(args))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        dataloader.imread_bgr(got_seq[0])
+    # Malaga's JPEG frames read as cv2.imread reads them
+    for f in got_seq:
+        np.testing.assert_array_equal(dataloader.imread_bgr(f),
+                                      cv2.imread(f, cv2.IMREAD_UNCHANGED))
 
 
 def test_error_cases_raise_as_reference(tmp_path):
@@ -275,7 +279,7 @@ def test_loop_trajectories_equal_reference(kind):
     assert np.array_equal(got, want)
 
 
-def test_synth_cli_writes_a_sequence_the_port_reads(tmp_path):
+def test_synth_cli_writes_a_sequence_the_port_reads(tmp_path, monkeypatch):
     out = str(tmp_path / "cli")
     assert synth.main(["--out", out, "--frames", "3", "--hw", "48", "96",
                        "--device", "cpu", "--trajectory", "square"]) == 0
@@ -287,5 +291,14 @@ def test_synth_cli_writes_a_sequence_the_port_reads(tmp_path):
                        "--device", "cpu", "--scene", "boxes",
                        "--trajectory", "square"]) == 0
     assert Sequence.load(_args("kitti", boxes)).frame(1).shape == (48, 96, 3)
-    with pytest.raises(SystemExit):             # PhotoScene is not ported
-        synth.main(["--out", out, "--scene", "photo"])
+    # the photo family, on photographs written here
+    import chip_smoke
+    rng = np.random.default_rng(2)
+    chip_smoke.write_photos(str(tmp_path / "ph"), [
+        rng.integers(0, 256, (40, 56), np.uint8) for _ in range(8)])
+    monkeypatch.setattr(synth, "REAL_PHOTO_GLOB", str(tmp_path / "ph" / "*"))
+    photo = str(tmp_path / "photo")
+    assert synth.main(["--out", photo, "--frames", "2", "--hw", "48", "96",
+                       "--device", "cpu", "--scene", "photo",
+                       "--trajectory", "loop"]) == 0
+    assert Sequence.load(_args("kitti", photo)).frame(1).shape == (48, 96, 3)

@@ -396,6 +396,8 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     ["--resume", "a.npz", "--save_state", "b.npz", "--localize_only",
      "--kf_thumb_hw", "320", "180", "--detector", "sift"],
     ["--detector", "akaze"],
+    # the landmark fusion radius (no driver reads it in either package)
+    ["--merge_radius", "0.2"],
 ])
 def test_config_matches_reference(argv):
     """Every field of the port's config parses as the reference's field of
@@ -409,11 +411,11 @@ def test_config_matches_reference(argv):
 
 
 @pytest.mark.parametrize("argv", [["--trace_dir", "x"], ["--fps", "5"],
-                                  ["--merge_radius", "0.2"], ["--viz_ba"]])
+                                  ["--viz_ba"]])
 def test_config_rejects_flags_of_unported_paths(argv):
-    """The profiler trace, the BA overlay windows and the landmark merge
-    radius have no reader in the port yet, and ``--fps`` none in either
-    package: the parser refuses them instead of ignoring them."""
+    """The profiler trace and the BA overlay windows have no reader in the
+    port yet, and ``--fps`` none in either package: the parser refuses
+    them instead of ignoring them."""
     from simpleslam_tpu.config import parse_config as jparse
     from simpleslam_tpu_torch.config import parse_config
     jparse(argv)

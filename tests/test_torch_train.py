@@ -403,7 +403,21 @@ def test_cli_without_a_gpu_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("extra", [["--real_frac", "0.5"],
                                    ["--families", "boxes"],
                                    ["--families", "corridor,photo"]])
-def test_cli_rejects_what_is_not_ported(extra, tmp_path):
-    with pytest.raises(NotImplementedError):
-        train_frontend.main(TINY + ["--steps", "1", "--out",
-                                    str(tmp_path / "x.npz")] + extra)
+def test_cli_rejects_what_is_not_ported(extra, tmp_path, monkeypatch):
+    """The photograph pairs (``--real_frac``) and the other scene families
+    train: two steps at TINY on photographs written here, finite losses,
+    the pools each step drew recorded."""
+    import chip_smoke
+    from simpleslam_tpu_torch.tools import synth as tsynth
+    rng = np.random.default_rng(0)
+    views = [rng.integers(0, 256, (96, 128), np.uint8) for _ in range(4)]
+    chip_smoke.write_photos(str(tmp_path / "ph"), views + views)
+    monkeypatch.setattr(tsynth, "REAL_PHOTO_GLOB",
+                        str(tmp_path / "ph" / "*"))
+    hist = []
+    argv = TINY + ["--steps", "2", "--out", str(tmp_path / "x.npz")] + extra
+    argv[argv.index("--scenes") + 1] = "2"
+    assert train_frontend.main(argv, history=hist) == 0
+    assert len(hist) == 2 and os.path.exists(tmp_path / "x.npz")
+    assert all(np.isfinite(v) for r in hist for v in r["metrics"].values())
+    assert {r["source"] for r in hist} <= {"photo", "scene", "synthetic"}

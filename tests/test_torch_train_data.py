@@ -165,6 +165,13 @@ def test_photometric_augment_bit_for_bit():
 
 
 def test_other_scene_families_raise():
-    with pytest.raises(NotImplementedError, match="boxes"):
-        ttrain.ScenePairPool((48, 64), n_views=2, n_scenes=1,
-                             families=("boxes",), device="cpu")
+    """An unknown family raises ``KeyError`` in both packages, as the
+    reference's ``SCENE_FAMILIES[fam]`` lookup does."""
+    for make in (lambda: jtrain.ScenePairPool(
+            (48, 64), n_views=2, n_scenes=1, families=("tunnel",),
+            cache_dir=None),
+            lambda: ttrain.ScenePairPool((48, 64), n_views=2, n_scenes=1,
+                                         families=("tunnel",),
+                                         device="cpu")):
+        with pytest.raises(KeyError, match="tunnel"):
+            make()
