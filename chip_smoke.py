@@ -205,7 +205,28 @@ Phases:
               on (b)'s map: landmark fusion at 0.1 m against a brute-force
               pair search on the card, MultiViewTriangulator over the run's
               keyframes on the card;
-  12. kernels one JSON line, one entry per kernel.
+  12. batch   the batch and multi-device layer, every entry point on a
+              one-rank NCCL group (the card's machine has one GPU and NCCL
+              refuses two ranks on one device; the multi-rank semantics
+              are held on the CPU by tests/test_torch_parallel.py): (a)
+              ``sharded_extract_and_match`` over 4 pairs of corridor frames
+              at 376x1232, 2048 keypoints, the trained tree, each pair held
+              to ``LearnedExtractor.fn`` + ``match_pair`` (keypoints
+              matched by position, at least 99% within 0.1 px; the match
+              sets overlapping at least 0.99), the attention
+              kernel's launches per batched forward (36, at BH 16), the
+              per-call check at BH 16 with seeded weights (ATTN_TOL),
+              frames/s batched and per pair, the idle share; (b)
+              ``ba_solve_batch`` over bench.py's BA window x8 against
+              eight ``ba_solve`` calls, solves/s both ways; (c)
+              ``ba_solve_sharded`` against ``ba_solve`` and
+              ``make_sharded_train_step`` against the unsharded step on
+              phase 6b's batch (gradient and update within GRAD_TOL,
+              36 + 36 kernel launches), ms a step both ways; (d)
+              ``StructureFromMotion`` over phase 7's corridor, ORB and
+              learned, with and without a mesh: the same keyframes, the
+              ATE against the JAX CPU reading (SFM_JAX_CPU);
+  13. kernels one JSON line, one entry per kernel.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -1641,6 +1662,485 @@ def run_train_phase(dev) -> dict:
         return res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: batch and multi-device
+# --------------------------------------------------------------------------- #
+
+# bench.py's bench_offline_batched: B pairs per call at 376x1232, 2048
+# keypoints, the trained tree, 9 layers
+BATCH_PAIRS = 4
+BATCH_KP_TOL = 0.1            # px, tests/test_parallel.py's
+# On the card the batched network's bf16 convolutions round otherwise than
+# one image's (cuDNN's algorithm depends on the batch), so a few of the
+# 2048 keypoints near the top-K's cut swap for others (max distance 3-25 px
+# between row-matched keypoints on an H100 at 700 W): the keypoints are
+# matched by position and at least this share of each image's must have
+# a counterpart within BATCH_KP_TOL
+BATCH_KP_SHARE_MIN = 0.99
+BATCH_MATCH_OVERLAP_MIN = 0.99
+# bench.py's bench_ba: 10 cameras, 2048 points, 16384 edges, point-major
+# O = 8, x8 windows
+BA_WINDOWS = 8
+BA_BATCH_COST_TOL = 1e-4      # relative, final cost against ba_solve's
+# tests/test_parallel.py::test_sharded_ba_matches_single_device's bounds
+BA_SHARDED_TOL = {"c0_rel": 1e-5, "c1_rel": 0.05, "poses": 2e-3,
+                  "points": 2e-2}
+SHARDED_TRAIN_LR = 1e-4       # no warmup: the first update moves
+SFM_FRAMES = 40               # phase 7's corridor, tools.synth's defaults
+# The JAX package's StructureFromMotion over the same 40 frames (its own
+# render) at the CLI's defaults, ATE (m) per RANSAC seed 0-3
+# (``JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_sfm.py
+# --package jax``): ORB keeps 14 keyframes, the learned front-end 7 at
+# every seed. The card's ATE is held to max(2 x the largest, 0.05 m)
+SFM_JAX_CPU = {
+    "orb": [0.049268342901820396, 0.024092512865291803, 0.0368828143438106,
+            0.030097765889626326],
+    "learned": [0.006695320331764212, 0.006596473848688081,
+                0.006713566235370273, 0.007155009244631688],
+}
+
+
+def batch_pairs(dev, B: int = BATCH_PAIRS):
+    """B pairs of corridor frames at 376x1232 rendered on the card, frames
+    i and i + 2: (grey frames 0..255, im0, im1 as (B, H, W, 1) in [0, 1])."""
+    import torch
+    from simpleslam_tpu_torch.models import aliked as aliked_mod
+    from simpleslam_tpu_torch.tools.synth import CorridorScene, make_trajectory
+    hw, K, _argv = bench_setup()
+    T_wc = make_trajectory(B + 2, speed=0.5, yaw_rate_deg=0.3)
+    scene = CorridorScene(seed=0, hw=hw, K=K, device=dev)
+    greys = [scene.render(T).float() for T in T_wc]
+    ims = [aliked_mod.preprocess_image(g) for g in greys]
+    return greys, torch.stack(ims[:B]), torch.stack(ims[2:B + 2])
+
+
+def kp_map(a, b, tol: float = BATCH_KP_TOL):
+    """For each valid keypoint of Features ``a``, the index of ``b``'s
+    nearest valid keypoint (-1 where none lies within ``tol``): (index map
+    over a's rows, the share of a's valid keypoints with one within
+    ``tol``)."""
+    import torch
+    d = torch.cdist(a.kpts.double(), b.kpts.double())
+    d[:, ~b.valid] = float("inf")
+    dist, idx = d.min(1)
+    near = a.valid & (dist <= tol)
+    return torch.where(near, idx, torch.full_like(idx, -1)), \
+        near.sum().item() / max(1, a.valid.sum().item())
+
+
+def wall_s(fn, reps: int = 5) -> list:
+    """Host seconds of ``reps`` calls of ``fn``, each ended by a
+    synchronise (one call first, untimed)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def run_batch_match_part(dev, weights) -> dict:
+    """(a) ``sharded_extract_and_match`` on a world-1 NCCL mesh, B pairs at
+    full width, held pair by pair to ``LearnedExtractor.fn`` +
+    ``match_pair``; the attention kernel's launches per batched forward; the
+    per-call check at BH 4B (seeded LightGlue, as phase 4's); frames/s
+    batched and per pair; the idle share of a batched call."""
+    import torch
+    from simpleslam_tpu_torch.models import lightglue as lg_mod
+    from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
+                                                      LearnedMatcher,
+                                                      seeded_init_)
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.parallel.batch import sharded_extract_and_match
+    from simpleslam_tpu_torch.parallel.mesh import make_mesh
+    B = BATCH_PAIRS
+    hw = HW
+    greys, im0, im1 = batch_pairs(dev)
+    ext = LearnedExtractor(N_KP, device=dev, state_dict=weights[0])
+    mat = LearnedMatcher(ext, state_dict=weights[1])
+    mesh = make_mesh(1, tp=1)
+
+    def batched(model=mat.model):
+        return sharded_extract_and_match(ext.model, model, im0, im1, mesh,
+                                         max_kp=N_KP, image_hw=hw,
+                                         min_conf=mat.min_conf)
+
+    def per_pair():
+        out = []
+        for i in range(B):
+            f0, f1 = ext.fn(greys[i]), ext.fn(greys[i + 2])
+            out.append((f0, f1, lg_mod.match_pair(mat.model, f0, f1, hw,
+                                                  mat.min_conf)))
+        return out
+
+    kernel = attention.cuda_masked_attention
+    batched()
+    torch.cuda.synchronize()
+    kernel.launches = 0                      # the batched call starts here
+    f0b, f1b, mb = batched()
+    torch.cuda.synchronize()
+    launches = kernel.launches               # ... and ends here
+    pairs = []
+    for b, (f0, f1, m) in enumerate(per_pair()):
+        # keypoints matched by position (a near tie may swap two rows of
+        # the top-K), the batch's matches carried into the pair's indices
+        map0, s0 = kp_map(f0b.at(b), f0)
+        map1, s1 = kp_map(f1b.at(b), f1)
+        same_valid = int(f0b.valid[b].sum()) == int(f0.valid.sum()) and \
+            int(f1b.valid[b].sum()) == int(f1.valid.sum())
+        mv = mb.valid[b]
+        got = set(zip(map0[mb.idx0[b][mv]].tolist(),
+                      map1[mb.idx1[b][mv]].tolist()))
+        want = set(zip(m.idx0[m.valid].tolist(), m.idx1[m.valid].tolist()))
+        pairs.append({"kp_share_within_tol": min(s0, s1),
+                      "same_valid": same_valid,
+                      "matches": len(got), "matches_per_pair": len(want),
+                      "overlap": len(got & want) / max(1, len(got | want))})
+
+    # where the keypoints differ: the batched score map against one
+    # image's
+    with torch.no_grad():
+        s_b = ext.model(im0)[0][0]
+        s_1 = ext.model(im0[:1])[0][0]
+    score_diff = (s_b - s_1).abs().max().item()
+
+    # the per-call check at BH 4B, N 2048: seeded weights, as phase 4
+    seeded = LearnedMatcher(ext, n_layers=9, state_dict=seeded_init_(
+        lg_mod.LightGlue(n_layers=9), 1).state_dict()).model
+    calls = []
+
+    def checked(q, k, v, m):
+        out = attention.masked_attention(q, k, v, m)
+        want = attention.plain_masked_attention(q, k, v, m)
+        err = (out - want).abs()[m.any(1)].max().item()
+        v_max = v.float().abs().max().item()
+        calls.append((err / max(1.0, v_max), err, tuple(q.shape),
+                      str(q.dtype)))
+        return out
+
+    lg_mod.masked_attention = checked
+    try:
+        batched(seeded)
+    finally:
+        lg_mod.masked_attention = attention.masked_attention
+    worst = max(calls)
+    t_batch = wall_s(batched)
+    t_pairs = wall_s(per_pair)
+    res = {"pairs": B, "hw": list(hw), "max_kp": N_KP,
+           "launches_per_batched_forward": launches,
+           "per_pair": pairs,
+           "score_map_max_abs_diff_batch_vs_one": score_diff,
+           "call_checks": len(calls),
+           "call_shapes": sorted({c[2] for c in calls}),
+           "call_worst": worst, "tolerance": ATTN_TOL,
+           "frames_per_s_batched": 2 * B / float(np.median(t_batch)),
+           "frames_per_s_per_pair": 2 * B / float(np.median(t_pairs)),
+           "seconds_batched": t_batch, "seconds_per_pair": t_pairs,
+           "trace_batched": device_idle_share(batched)}
+    if not (launches == 36 and len(calls) == 36
+            and all(c[2][0] == 4 * B and c[2][1] == N_KP for c in calls)
+            and worst[0] <= ATTN_TOL
+            and all(p["same_valid"]
+                    and p["kp_share_within_tol"] >= BATCH_KP_SHARE_MIN
+                    and p["overlap"] >= BATCH_MATCH_OVERLAP_MIN
+                    and p["matches"] > 0 for p in pairs)):
+        raise RuntimeError(f"batched extract and match failed its checks: "
+                           f"{res}")
+    return res
+
+
+def ba_window(dev, seed: int = 0):
+    """bench.py's bench_ba window: (BAProblem on ``dev``, K, O)."""
+    import torch
+    from simpleslam_tpu_torch.ops.ba import BAProblem
+    rngb = np.random.default_rng(seed)
+    P_, L_, E_ = 10, 2048, 16384
+    pts = np.stack([rngb.uniform(-5, 5, L_), rngb.uniform(-3, 3, L_),
+                    rngb.uniform(4, 30, L_)], 1).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (P_, 1, 1))
+    poses[:, 0, 3] = np.arange(P_) * 0.3
+    O_ = E_ // L_
+    cam_idx = rngb.integers(0, P_, E_)
+    pt_idx = np.repeat(np.arange(L_), O_)
+    pc = np.einsum("eij,ej->ei", poses[cam_idx][:, :3, :3], pts[pt_idx]) \
+        + poses[cam_idx][:, :3, 3]
+    uv = (pc[:, :2] / pc[:, 2:3]) * 707.0 + np.array([601.0, 183.0])
+    uv = (uv + rngb.normal(0, 0.5, (E_, 2))).astype(np.float32)
+    cam_free = np.ones(P_, bool)
+    cam_free[0] = False
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    prob = BAProblem(t(poses), t(pts), t(cam_idx), t(pt_idx), t(uv),
+                     t(np.ones(E_, bool)), t(cam_free), t(np.ones(L_, bool)))
+    K = t(np.array([[707.0, 0, 601.0], [0, 707.0, 183.0], [0, 0, 1.0]],
+                   np.float32))
+    return prob, K, O_
+
+
+def run_ba_batch_part(dev) -> dict:
+    """(b) ``ba_solve_batch`` over BA_WINDOWS copies of bench_ba's window
+    (uv offset 1e-4 px per window, as bench.py) against one ``ba_solve``
+    each: final costs within BA_BATCH_COST_TOL relative, the same accepted
+    steps; solves/s both ways."""
+    import torch
+    from simpleslam_tpu_torch.ops.ba import BAProblem, ba_solve, ba_solve_batch
+    prob, K, O = ba_window(dev)
+    n = BA_WINDOWS
+    probs = BAProblem(*(torch.stack([x] * n) for x in prob))
+    probs = probs._replace(uv=probs.uv + 1e-4 * torch.arange(
+        n, dtype=torch.float32, device=dev)[:, None, None])
+
+    def batch():
+        return ba_solve_batch(probs, K, huber=2.0, max_iters=12,
+                              point_major_obs=O)
+
+    def singles():
+        return [ba_solve(BAProblem(*(x[i] for x in probs)), K, huber=2.0,
+                         max_iters=12, point_major_obs=O) for i in range(n)]
+
+    pb, xb, c0b, c1b, nb = batch()
+    one = singles()
+    c1 = torch.stack([o[3] for o in one])
+    ng = torch.stack([o[4] for o in one])
+    rel = ((c1b - c1).abs() / c1.abs()).max().item()
+    t_b, t_s = wall_s(batch, 3), wall_s(singles, 3)
+    res = {"windows": n, "cameras": 10, "points": 2048, "edges": 16384,
+           "point_major_obs": O, "cost_initial": c0b.tolist(),
+           "cost_final_batch": c1b.tolist(), "cost_final_single": c1.tolist(),
+           "cost_rel_err": rel, "tolerance": BA_BATCH_COST_TOL,
+           "n_good_batch": nb.tolist(), "n_good_single": ng.tolist(),
+           "solves_per_s_batch": n / float(np.median(t_b)),
+           "solves_per_s_single": n / float(np.median(t_s)),
+           "seconds_batch": t_b, "seconds_single": t_s}
+    if not (rel <= BA_BATCH_COST_TOL and torch.equal(nb, ng)
+            and bool((c1b < c0b).all())):
+        raise RuntimeError(f"ba_solve_batch failed its checks: {res}")
+    return res
+
+
+def ba_fixture(dev, P_=6, L_=256, E_=2044, noise=0.5, seed=0):
+    """tests/test_parallel.py's BA window (E = 2044) on ``dev``."""
+    import torch
+    from simpleslam_tpu_torch.ops.ba import BAProblem
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-5, 5, L_), rng.uniform(-3, 3, L_),
+                    rng.uniform(4, 30, L_)], 1).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (P_, 1, 1))
+    poses[:, 0, 3] = np.arange(P_) * 0.3
+    cam_idx = rng.integers(0, P_, E_)
+    pt_idx = rng.integers(0, L_, E_)
+    pc = np.einsum("eij,ej->ei", poses[cam_idx][:, :3, :3], pts[pt_idx]) \
+        + poses[cam_idx][:, :3, 3]
+    uv = (pc[:, :2] / pc[:, 2:3]) * 500.0 + np.array([320.0, 240.0])
+    uv = (uv + rng.normal(0, noise, (E_, 2))).astype(np.float32)
+    poses[:, :3, 3] += rng.normal(0, 0.05, (P_, 3)).astype(np.float32)
+    pts = (pts + rng.normal(0, 0.05, (L_, 3))).astype(np.float32)
+    cam_free = np.ones(P_, bool)
+    cam_free[0] = False
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    K = t(np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]],
+                   np.float32))
+    return BAProblem(t(poses), t(pts), t(cam_idx), t(pt_idx), t(uv),
+                     t(np.ones(E_, bool)), t(cam_free),
+                     t(np.ones(L_, bool))), K
+
+
+def run_sharded_part(dev, weights) -> dict:
+    """(c) ``ba_solve_sharded`` and ``make_sharded_train_step`` on a
+    world-1 NCCL mesh, each against its unsharded counterpart on the same
+    inputs: BA at BA_SHARDED_TOL; one training step on phase 6b's batch
+    (8 pairs of 144x256 crops, 96 points) from the trained tree, with the
+    models at their bf16 and in float32: the gathered flat gradient within
+    GRAD_TOL of the step's dtype (of its largest entry); the update (the
+    parameters after the step less before) within one rounding of the
+    parameter plus GRAD_TOL of the unsharded update's largest entry where
+    the gradient lies above its tolerance (below it a sign may flip:
+    printed, not held), and not zero; beside two unsharded gradients of
+    one state
+    (the card's run-to-run spread: its gathers' backward adds atomically),
+    36 forward and 36 backward kernel launches a sharded step; ms a step
+    both ways (bf16)."""
+    import torch
+    from simpleslam_tpu_torch.models import train as train_mod
+    from simpleslam_tpu_torch.models import train_frontend
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.ops.ba import ba_solve, ba_solve_sharded
+    from simpleslam_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1, tp=1)
+    prob, K = ba_fixture(dev)
+    p0, x0, c0a, c1a, _ = ba_solve(prob, K, huber=2.0, max_iters=12)
+    p1, x1, c0b, c1b, _ = ba_solve_sharded(prob, K, mesh, huber=2.0,
+                                           max_iters=12)
+    ba = {"c0": [float(c0a), float(c0b)], "c1": [float(c1a), float(c1b)],
+          "poses_max_abs": (p1 - p0).abs().max().item(),
+          "points_max_abs": (x1 - x0).abs().max().item(),
+          "tolerance": BA_SHARDED_TOL}
+    T = BA_SHARDED_TOL
+    if not (abs(ba["c0"][1] - ba["c0"][0]) <= T["c0_rel"] * ba["c0"][0]
+            and abs(ba["c1"][1] - ba["c1"][0]) <= T["c1_rel"] * ba["c1"][0]
+            and ba["c1"][1] < 0.5 * ba["c0"][1]
+            and ba["poses_max_abs"] <= T["poses"]
+            and ba["points_max_abs"] <= T["points"]):
+        raise RuntimeError(f"ba_solve_sharded failed its checks: {ba}")
+
+    hw = (144, 256)
+    pool = train_mod.ScenePairPool(hw, n_views=4, n_scenes=1,
+                                   render_hw=(376, 1232), seed=1, device=dev)
+    rng = np.random.default_rng(5)
+    batch = train_mod.batch_to_device(train_mod.photometric_augment(
+        rng, pool.batch(rng, 8, 96)), dev)
+    width = dict(desc_dim=train_frontend.DESC_DIM, dim=train_frontend.DIM,
+                 n_layers=train_frontend.N_LAYERS)
+
+    def rel(a, b):
+        a = torch.where(torch.isfinite(a), a, torch.zeros_like(a))
+        b = torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    fwd, bwd = attention.cuda_masked_attention, \
+        attention.cuda_masked_attention_bwd
+    train = {"batch": [8, *hw], "points": 96}
+    for dt in ("bfloat16", "float32"):
+        def fresh():
+            return train_mod.make_train_state(
+                torch.Generator().manual_seed(0), lr=SHARDED_TRAIN_LR,
+                warmup=0, device=dev, state_dicts=weights,
+                dtype=getattr(torch, dt), **width)
+
+        tx, plain = fresh()
+        before = plain.flat.clone().float()  # the steps update flat in place
+        _m, grad_u = train_mod.loss_and_grad(plain.models, batch, hw)
+        _m, grad_u2 = train_mod.loss_and_grad(plain.models, batch, hw)
+        step_u = train_mod.make_train_step(tx, hw)
+        plain, _ = step_u(plain, batch)
+        tx_s, sharded = fresh()
+        sharded = train_mod.shard_train_state(sharded, mesh)
+        _m, grad_s = train_mod.sharded_loss_and_grad(sharded.models, batch,
+                                                     hw, mesh)
+        grad_s = train_mod.gather_flat(sharded.models, grad_s, mesh)
+        step_s = train_mod.make_sharded_train_step(tx_s, hw, mesh)
+        torch.cuda.synchronize()
+        fwd.launches = bwd.launches = 0      # the sharded step starts here
+        sharded, metrics = step_s(sharded, batch)
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = fwd.launches, bwd.launches   # ... and ends here
+        upd_s = train_mod.gather_flat(sharded.models, sharded.flat,
+                                      mesh).float() - before
+        upd_u = plain.flat.float() - before
+        # Adam's first update is about -lr sign(g): an entry whose gradient
+        # lies within the gradient's tolerance of 0 may take either sign.
+        # Two updates a hair apart may round the parameter one unit apart
+        g = torch.nan_to_num(grad_u.float(), 0.0, 0.0, 0.0).abs()
+        sure = g > GRAD_TOL[dt] * g.max()
+        ulp = torch.finfo(plain.flat.dtype).eps * before.abs()
+        excess = ((upd_s - upd_u).abs() - ulp).clamp(min=0)
+        r = {"grad_rel_err": rel(grad_s, grad_u),
+             "grad_rel_err_unsharded_twice": rel(grad_u2, grad_u),
+             "update_rel_err": excess[sure].max().item()
+             / upd_u.abs().max().item(),
+             "update_rel_err_all": (upd_s - upd_u).abs().max().item()
+             / upd_u.abs().max().item(),
+             "update_share_held": sure.float().mean().item(),
+             "update_max_abs": [upd_u.abs().max().item(),
+                                upd_s[sure].abs().max().item()],
+             "tolerance": GRAD_TOL[dt],
+             "launches_fwd": n_fwd, "launches_bwd": n_bwd,
+             "metrics": {k: float(v) for k, v in metrics.items()}}
+        train[dt] = r
+        if not (n_fwd == 36 and n_bwd == 36
+                and r["grad_rel_err"] <= GRAD_TOL[dt]
+                and r["update_max_abs"][1] > 0
+                and r["update_rel_err"] <= GRAD_TOL[dt]
+                and all(math.isfinite(v) for v in r["metrics"].values())):
+            raise RuntimeError(f"the sharded training step failed its "
+                               f"checks ({dt}): {train}")
+        if dt == "bfloat16":
+            # more steps of both states (each updates in place), in turns
+            t_u, t_s = [], []
+            for _ in range(3):
+                t_u += wall_s(lambda: step_u(plain, batch), 2)
+                t_s += wall_s(lambda: step_s(sharded, batch), 2)
+            train["ms_per_step_sharded"] = 1e3 * float(np.median(t_s))
+            train["ms_per_step_unsharded"] = 1e3 * float(np.median(t_u))
+        del plain, sharded
+    train["launches_fwd"] = train["bfloat16"]["launches_fwd"]
+    train["launches_bwd"] = train["bfloat16"]["launches_bwd"]
+    return {"ba": ba, "train": train}
+
+
+def run_sfm_part(dev, weights) -> dict:
+    """(d) ``StructureFromMotion`` over phase 7's corridor (SFM_FRAMES
+    frames at 370x1226 rendered on the card), ORB and the learned
+    front-end, with a world-1 mesh and without: the same keyframes, the ATE
+    against the JAX package's CPU reading (SFM_JAX_CPU)."""
+    import torch
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.parallel.mesh import make_mesh
+    from simpleslam_tpu_torch.tools import synth
+    from simpleslam_tpu_torch.tools.sfm import StructureFromMotion
+    T_wc = synth.make_trajectory(SFM_FRAMES, speed=0.5, yaw_rate_deg=0.25)
+    scene = synth.CorridorScene(seed=0, device=dev)
+    frames = [scene.render(T) for T in T_wc]
+    mesh = make_mesh(1, tp=1)
+    out = {}
+    for front, extra in (("orb", []), ("learned", ["--use_lightglue"])):
+        cfg = parse_config(["--dataset", "kitti", "--headless"] + extra)
+        runs = {}
+        for name, m in (("mesh", mesh), ("none", None)):
+            t0 = time.time()
+            sfm = StructureFromMotion(cfg, synth.DEFAULT_K, mesh=m,
+                                      device=dev, weights=weights)
+            sfm.add_frames(frames)
+            r = sfm.run(gt_T=T_wc[:, :3, :4])
+            torch.cuda.synchronize()
+            runs[name] = {"kf_frames": r.kf_frames, "landmarks":
+                          r.n_landmarks, "ate_m": r.ate,
+                          "rte_rot_deg": r.rte_rot_deg,
+                          "seconds": time.time() - t0}
+        ref = SFM_JAX_CPU[front]
+        bound = max(2 * max(ref), 0.05)
+        out[front] = {"runs": runs, "jax_cpu_ate_m": ref,
+                      "ate_max": bound}
+        ok = runs["mesh"]["kf_frames"] == runs["none"]["kf_frames"] and all(
+            r["ate_m"] is not None and math.isfinite(r["ate_m"])
+            and r["ate_m"] <= bound for r in runs.values())
+        if not ok:
+            raise RuntimeError(f"StructureFromMotion ({front}) failed its "
+                               f"checks: {out[front]}")
+    return out
+
+
+def run_batch_phase(dev, weights) -> dict:
+    """Phase 12: (a)-(d) on the one-rank NCCL group that ``make_mesh``
+    makes; each part raises on a failed check. The group is destroyed at
+    the end."""
+    import torch.distributed as dist
+    res = {}
+    try:
+        for name, fn in (("batch_match",
+                          lambda: run_batch_match_part(dev, weights)),
+                         ("ba_batch", lambda: run_ba_batch_part(dev)),
+                         ("sharded", lambda: run_sharded_part(dev, weights)),
+                         ("sfm", lambda: run_sfm_part(dev, weights))):
+            t0 = time.time()
+            res[name] = fn()
+            res[name]["seconds"] = time.time() - t0
+        res["backend"] = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -3836,7 +4336,13 @@ def main() -> None:
     pres = run_photos_phase(dev)
     log("photos", t0, nvidia_smi=smi, **pres)
 
-    # 12. kernels ------------------------------------------------------------
+    # 12. batch and multi-device: batched extract and match, batched and
+    # sharded BA, the sharded training step, StructureFromMotion ---------
+    t0 = time.time()
+    bres = run_batch_phase(dev, weights)
+    log("batch", t0, nvidia_smi=smi, **bres)
+
+    # 13. kernels ------------------------------------------------------------
     # the self-attention mix: float32 q, k and bf16 v, the main path's
     # heavier call (its cross-attention mix is in phase 3's and phase 6b's
     # lines)
@@ -3856,6 +4362,8 @@ def main() -> None:
         lres["main"][1]["attention_launches_loop_stage"],
         "launches_photo_train": pres["train"]["launches_kernel"],
         "launches_real_eval": pres["real_eval"]["attention_launches"],
+        "launches_batch_match":
+        bres["batch_match"]["launches_per_batched_forward"],
         "launches_per_match_call_real_eval":
         pres["real_eval"]["launches_per_match_call"],
         "max_abs_err": max(kres["max_abs_err"].values()),
@@ -3875,6 +4383,7 @@ def main() -> None:
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:98",
         "launches": tres["launches"],
         "launches_photo_train": pres["train"]["launches"],
+        "launches_sharded_train": bres["sharded"]["train"]["launches_fwd"],
         "max_abs_err": tres["max_abs_err"],
         "ms": d_self["function_fwd_bwd"]["ms"],
         "device_ms": d_self["function_fwd_bwd"]["device_ms"],
@@ -3892,6 +4401,7 @@ def main() -> None:
         "replaces": "simpleslam_tpu/ops/pallas/attention.py:109",
         "launches": tres["launches_bwd"],
         "launches_photo_train": pres["train"]["launches_bwd"],
+        "launches_sharded_train": bres["sharded"]["train"]["launches_bwd"],
         "max_abs_err": tres["bwd_max_abs_err"],
         "ms": d_self["backward_kernel"]["ms"],
         "device_ms": d_self["backward_kernel"]["device_ms"],

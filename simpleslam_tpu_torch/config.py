@@ -11,10 +11,13 @@ state (``--save_state``, ``--resume``), localisation-only mode
 (``--localize_only``) and the keyframe thumbnails' ``--kf_thumb_hw`` are
 ported. ``--merge_radius`` parses as in the reference, where no driver
 reads it either (``ops/triangulation.py::MultiViewTriangulator`` takes its
-own radius). Flags of the paths not yet ported (``--trace_dir``,
-``--viz_ba`` and the TPU package's mesh and padding knobs) and ``--fps``,
-which nothing in the reference reads, are absent: the parser rejects them
-rather than ignore them. ``--matcher`` is
+own radius). So do ``--mesh_devices`` and ``--trace_dir``: the
+reference's ``run_slam`` reads neither (it imports ``jax_trace`` and never
+calls it); ``parallel/mesh.py::make_mesh`` and
+``utils/profiling.py::torch_trace`` take them from a caller. Flags of the
+paths not yet ported (``--viz_ba`` and the TPU package's padding and
+precision knobs) and ``--fps``, which nothing in the reference reads, are
+absent: the parser rejects them rather than ignore them. ``--matcher`` is
 parsed and has no effect: ``bf`` and ``flann`` are both the brute-force
 matcher, as in the reference. ``--device`` (the port's own) chooses
 where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
@@ -157,6 +160,9 @@ class SLAMConfig:
                                            # the end (and on SIGINT)
     resume: str = ""                       # resume pipeline state from this
                                            # file
+    # parsed only: run_slam reads neither, as in the reference
+    mesh_devices: int = 0                  # 0 => every rank of the group
+    trace_dir: str = ""                    # torch.profiler trace output dir
 
     @classmethod
     def from_yaml(cls, path: str) -> "SLAMConfig":
@@ -208,6 +214,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(and on SIGINT)")
     p.add_argument("--resume", default=d.resume,
                    help="Resume pipeline state from a --save_state file")
+    p.add_argument("--trace_dir", default=d.trace_dir,
+                   help="Directory for a torch.profiler trace "
+                        "(utils/profiling.py::torch_trace)")
     for f in dataclasses.fields(SLAMConfig):
         if f.type in ("int", "float", "Optional[int]"):
             p.add_argument(f"--{f.name}", type=float if f.type == "float"

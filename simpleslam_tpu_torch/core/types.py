@@ -20,6 +20,20 @@ class _TensorRecord:
         return {f.name: getattr(self, f.name).detach().cpu().numpy()
                 for f in fields(self)}
 
+    def map(self, fn):
+        """The record with ``fn`` applied to every field."""
+        return type(self)(*(fn(getattr(self, f.name)) for f in fields(self)))
+
+    def at(self, i):
+        """Item ``i`` of a record with a leading batch axis."""
+        return self.map(lambda t: t[i])
+
+    @classmethod
+    def stack(cls, records):
+        """Records of one kind stacked on a new leading batch axis."""
+        return cls(*(torch.stack([getattr(r, f.name) for r in records])
+                     for f in fields(cls)))
+
 
 @dataclass
 class Features(_TensorRecord):

@@ -181,6 +181,18 @@ def dkd_extract(score: torch.Tensor, desc_map: torch.Tensor, max_kp: int,
                     valid=valid)
 
 
+@torch.no_grad()
+def extract_batch(model: "ALIKED", images: torch.Tensor, max_kp: int
+                  ) -> Features:
+    """Batched extraction: (B, H, W, 1) float [0, 1] -> Features stacked on
+    a leading batch axis. One network forward over the batch, then
+    :func:`dkd_extract` per image (``topk`` and the gathers are
+    single-image)."""
+    score, desc_map = model(images)
+    return Features.stack([dkd_extract(score[b], desc_map[b], max_kp)
+                           for b in range(images.shape[0])])
+
+
 def preprocess_image(img: torch.Tensor) -> torch.Tensor:
     """uint8/float BGR or grey (H, W[, 3]) -> (H', W', 1) float32 in [0, 1],
     zero-padded to multiples of 8."""

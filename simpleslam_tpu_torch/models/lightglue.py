@@ -188,6 +188,18 @@ def match_pair(model: LightGlue, feats0, feats1, image_hw: Tuple[int, int],
     return matches_from_assignment(P[0], min_conf)
 
 
+@torch.no_grad()
+def match_batch(model: LightGlue, feats0, feats1, image_hw: Tuple[int, int],
+                min_conf: float = 0.7) -> Matches:
+    """Batched pair matching: Features with a leading batch axis -> Matches
+    with a leading batch axis. One forward over the B pairs (each attention
+    call at BH = B x heads), then :func:`matches_from_assignment` per
+    pair."""
+    P, _, _ = model(feats0.kpts, feats0.desc, feats0.valid,
+                    feats1.kpts, feats1.desc, feats1.valid, image_hw)
+    return Matches.stack([matches_from_assignment(p, min_conf) for p in P])
+
+
 def init_lightglue(generator: torch.Generator, desc_dim: int = 128,
                    dim: int = 256, heads: int = 4, n_layers: int = 9,
                    dtype: torch.dtype = torch.bfloat16) -> LightGlue:

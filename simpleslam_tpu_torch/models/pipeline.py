@@ -145,6 +145,11 @@ class LearnedExtractor:
         score, desc_map = self.model(img[None])
         return aliked_mod.dkd_extract(score[0], desc_map[0], self.max_kp)
 
+    def extract_batch(self, images: torch.Tensor) -> Features:
+        """(B, H, W, 1) float [0, 1] on the device -> batched Features (the
+        throughput mode)."""
+        return aliked_mod.extract_batch(self.model, images, self.max_kp)
+
 
 class LearnedMatcher:
     """LightGlue bundle satisfying the frontend Matcher protocol."""

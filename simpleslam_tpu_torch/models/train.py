@@ -25,13 +25,15 @@ a ``torch.Generator`` or, where the reference uses numpy, an
 ``np.random.Generator`` in the reference's order) and a deterministic
 function of them, so the tests feed in what ``jax.random`` drew.
 
-Not ported yet: the sharded step (``shard_params_for_tp``,
-``make_sharded_train_step``; ROADMAP A.10).
+The sharded step (``shard_params_for_tp``, ``make_sharded_train_step``)
+runs over a (dp, tp) ``DeviceMesh`` (``parallel/mesh.py``): the batch split
+over 'dp', the dense layers the reference's rule picks split along their
+outputs over 'tp'.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,12 +109,16 @@ class AdamWChain:
 
     @torch.no_grad()
     def update_(self, flat: torch.Tensor, grad: torch.Tensor,
-                state: OptState) -> Tuple[OptState, torch.Tensor]:
+                state: OptState, norm_fn=None
+                ) -> Tuple[OptState, torch.Tensor]:
         """Apply one update to ``flat`` in place; returns the new state and
-        the global norm of the sanitised gradient (0-d, on the device)."""
+        the global norm of the sanitised gradient (0-d, on the device).
+        ``norm_fn(g)``: that norm when ``flat`` holds only a shard of the
+        parameters (the sharded step's)."""
         b1, b2 = self.B1, self.B2
         g = torch.where(torch.isfinite(grad), grad, torch.zeros_like(grad))
-        gnorm = torch.linalg.vector_norm(g)
+        gnorm = torch.linalg.vector_norm(g) if norm_fn is None \
+            else norm_fn(g)
         g = torch.where(gnorm < self.MAX_NORM, g,
                         g / gnorm * self.MAX_NORM)
         mu = (1 - b1) * g + b1 * state.mu
@@ -670,14 +676,25 @@ def _peak_align_loss(score0, score1, warp01, wvalid, n_peaks: int = 128,
 
 
 def loss_fn(aliked: nn.Module, lightglue: nn.Module,
-            batch: Dict[str, torch.Tensor], image_hw: Tuple[int, int]):
+            batch: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
+            n_valid: Optional[torch.Tensor] = None,
+            batch_share: Optional[float] = None):
     """(total, {"desc", "rep", "peak", "match", "sig", "total"}), 0-d
-    tensors on the batch's device."""
+    tensors on the batch's device.
+
+    For a shard of a batch (the sharded step): ``n_valid`` is the whole
+    batch's valid-point count and ``batch_share`` the shard's share of its
+    samples, so each term is the shard's part of the whole batch's term
+    and the parts add up to it."""
     score0, dmap0 = aliked(batch["img0"])
     score1, dmap1 = aliked(batch["img1"])
     pts0, pts1 = batch["pts0"], batch["pts1"]
     pv = batch["pt_valid"]
-    n_valid = torch.clamp(pv.sum(), min=1)
+    if n_valid is None:
+        n_valid = torch.clamp(pv.sum(), min=1)
+
+    def share(mean):
+        return mean if batch_share is None else mean * batch_share
 
     d0 = _sample_many(dmap0, pts0)            # (B, G, D)
     d1 = _sample_many(dmap1, pts1)
@@ -701,20 +718,22 @@ def loss_fn(aliked: nn.Module, lightglue: nn.Module,
     l_rep = torch.where(pv, (s0 - s1) ** 2, zero).sum() / n_valid
 
     if "warp01" in batch:
-        l_peak = _peak_align_loss(score0, score1, batch["warp01"],
-                                  batch["warp_valid"]).mean()
+        l_peak = share(_peak_align_loss(score0, score1, batch["warp01"],
+                                        batch["warp_valid"]).mean())
     else:
         l_peak = torch.zeros((), device=score0.device)
     # anti-collapse; the magnitude penalty is clamped
-    l_reg = torch.relu(1.0 - torch.std(score0, dim=(1, 2), correction=0)) \
-        .mean() + 0.01 * torch.clamp(score0 ** 2, max=1e4).mean()
+    l_reg = share(torch.relu(1.0 - torch.std(score0, dim=(1, 2),
+                                             correction=0)).mean()
+                  + 0.01 * torch.clamp(score0 ** 2, max=1e4).mean())
 
     # LightGlue assignment NLL at the ground-truth correspondences
     P, sig0, _sig1 = lightglue(pts0, d0, pv, pts1, d1, pv, image_hw)
     diagP = torch.diagonal(P, dim1=1, dim2=2)
     l_match = -torch.where(pv, torch.log(diagP + 1e-9), zero).sum() / n_valid
     sig0c = torch.clamp(sig0, 1e-6, 1.0 - 1e-6)
-    l_sig = -torch.where(pv, torch.log(sig0c), torch.log(1.0 - sig0c)).mean()
+    l_sig = -share(torch.where(pv, torch.log(sig0c),
+                               torch.log(1.0 - sig0c)).mean())
 
     total = (l_desc + 0.5 * l_rep + 0.5 * l_peak + 0.1 * l_reg
              + l_match + 0.1 * l_sig)
@@ -740,6 +759,211 @@ def make_train_step(tx: AdamWChain, image_hw: Tuple[int, int]):
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         metrics, grad = loss_and_grad(state.models, batch, image_hw)
         opt_state, _gnorm = tx.update_(state.flat, grad, state.opt_state)
+        return state._replace(opt_state=opt_state, step=state.step + 1), \
+            metrics
+
+    return train_step
+
+
+# --------------------------------------------------------------------------- #
+# Sharded training over a (dp, tp) mesh
+# --------------------------------------------------------------------------- #
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; backward sums the input gradient over the tp group
+    (each rank's column slice of a layer gives part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather column slices along the last axis over the tp group;
+    backward keeps this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank, n):
+        ctx.rank, ctx.k = rank, y.shape[-1]
+        parts = [torch.empty_like(y) for _ in range(n)]
+        torch.distributed.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.rank * ctx.k:(ctx.rank + 1) * ctx.k], None, None, \
+            None
+
+
+class ColumnParallelDense(nn.Module):
+    """``lightglue.Dense`` with its output features split over the tp
+    group: this rank holds rows ``[rank k, (rank + 1) k)`` of the weight
+    (``weight.tp_sharded`` is set), computes that slice of the output and
+    all-gathers the rest; the bias is replicated and added after the
+    gather, as the dense layer adds it after the product."""
+
+    def __init__(self, dense: nn.Module, group, rank: int, n: int):
+        super().__init__()
+        k = dense.out_features // n
+        self.group, self.rank, self.n = group, rank, n
+        self.dtype = dense.dtype
+        self.weight = nn.Parameter(
+            dense.weight.detach()[rank * k:(rank + 1) * k].clone())
+        self.weight.tp_sharded = True
+        self.bias = None if dense.bias is None else \
+            nn.Parameter(dense.bias.detach().clone())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        x = _CopyToTP.apply(x, self.group)
+        y = x.to(dt) @ self.weight.to(dt).T
+        y = _GatherFromTP.apply(y, self.group, self.rank, self.n)
+        return y + self.bias.to(dt) if self.bias is not None else y
+
+
+def _tp_rule(weight: torch.Tensor, tp: int) -> bool:
+    """The reference's rule: a dense kernel whose output width divides by
+    tp and is at least 64 is split along its outputs."""
+    return weight.dim() == 2 and weight.shape[0] % tp == 0 \
+        and weight.shape[0] >= 64
+
+
+def shard_params_for_tp(models: Dict[str, nn.Module], mesh
+                        ) -> Dict[str, nn.Module]:
+    """This rank's copy of ``models``: every dense layer that the
+    reference's rule splits over 'tp' becomes a
+    :class:`ColumnParallelDense` holding this rank's rows; everything else
+    is replicated. The input models are left as they are."""
+    import copy
+
+    from simpleslam_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    tp = axis_size(mesh, "tp")
+    out = {k: copy.deepcopy(m) for k, m in models.items()}
+    if tp == 1:
+        return out
+    group, rank = mesh.get_group("tp"), axis_index(mesh, "tp")
+    for m in out.values():
+        for parent in list(m.modules()):
+            for name, child in list(parent.named_children()):
+                if isinstance(child, lg_mod.Dense) \
+                        and _tp_rule(child.weight, tp):
+                    setattr(parent, name,
+                            ColumnParallelDense(child, group, rank, tp))
+    return out
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """A train state whose parameters and optimizer moments are this
+    rank's shards (:func:`shard_params_for_tp`) of ``state``'s."""
+    from simpleslam_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    models = shard_params_for_tp(state.models, mesh)
+    tp, rank = axis_size(mesh, "tp"), axis_index(mesh, "tp")
+
+    def local(vec: torch.Tensor) -> torch.Tensor:
+        parts, off = [], 0
+        for p_full, p in zip(param_list(state.models), param_list(models)):
+            v = vec[off:off + p_full.numel()].view_as(p_full)
+            if getattr(p, "tp_sharded", False):
+                k = p_full.shape[0] // tp
+                v = v[rank * k:(rank + 1) * k]
+            parts.append(v.reshape(-1))
+            off += p_full.numel()
+        return torch.cat(parts)
+
+    flat = flatten_params_(param_list(models))
+    opt = state.opt_state
+    return TrainState(models, flat, OptState(opt.count, local(opt.mu),
+                                             local(opt.nu)), state.step)
+
+
+def gather_flat(models: Dict[str, nn.Module], vec: torch.Tensor, mesh
+                ) -> torch.Tensor:
+    """A vector laid out as the sharded ``models``' flat buffer (their
+    parameters or gradients) -> the whole, laid out as the unsharded
+    models' buffer (:func:`param_list` order)."""
+    from simpleslam_tpu_torch.parallel.mesh import axis_size
+
+    tp = axis_size(mesh, "tp")
+    parts, off = [], 0
+    for p in param_list(models):
+        v = vec[off:off + p.numel()].view_as(p)
+        off += p.numel()
+        if getattr(p, "tp_sharded", False) and tp > 1:
+            got = [torch.empty_like(v) for _ in range(tp)]
+            torch.distributed.all_gather(got, v.contiguous(),
+                                         group=mesh.get_group("tp"))
+            v = torch.cat(got)
+        parts.append(v.reshape(-1))
+    return torch.cat(parts)
+
+
+def sharded_loss_and_grad(models: Dict[str, nn.Module],
+                          batch: Dict[str, torch.Tensor],
+                          image_hw: Tuple[int, int], mesh):
+    """:func:`loss_and_grad` over a (dp, tp) mesh: this rank's dp slice of
+    the whole ``batch``, its terms scaled by the whole batch's valid count
+    and sample count, the metrics and the gradient (laid out as the
+    sharded models' flat buffer) summed over the dp group."""
+    from simpleslam_tpu_torch.parallel.mesh import dp_slice
+
+    B = batch["img0"].shape[0]
+    s = dp_slice(mesh, B)
+    params = param_list(models)
+    total, metrics = loss_fn(
+        models["aliked"], models["lightglue"],
+        {k: v[s] for k, v in batch.items()}, image_hw,
+        n_valid=torch.clamp(batch["pt_valid"].sum(), min=1),
+        batch_share=(s.stop - s.start) / B)
+    grads = torch.autograd.grad(total, params)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    names = sorted(metrics)
+    m = torch.stack([metrics[k].detach().float() for k in names])
+    group = mesh.get_group("dp")
+    torch.distributed.all_reduce(flat, group=group)
+    torch.distributed.all_reduce(m, group=group)
+    return dict(zip(names, m)), flat
+
+
+def make_sharded_train_step(tx: AdamWChain, image_hw: Tuple[int, int],
+                            mesh):
+    """``train_step(state, batch) -> (state, metrics)`` over a (dp, tp)
+    mesh: every rank is handed the whole batch and the state made by
+    :func:`shard_train_state`; the batch is split over 'dp', the split
+    dense layers over 'tp'. It equals :func:`make_train_step`'s step up to
+    float reassociation: the loss terms are normalised by the whole batch,
+    and the clip sees the norm of the whole gradient."""
+    from simpleslam_tpu_torch.parallel.mesh import axis_size
+
+    tp_group = mesh.get_group("tp") if axis_size(mesh, "tp") > 1 else None
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        metrics, grad = sharded_loss_and_grad(state.models, batch, image_hw,
+                                              mesh)
+        norm_fn = None        # without tp every rank holds the whole gradient
+        if tp_group is not None:
+            shard = torch.cat([            # the entries split over tp
+                torch.full((p.numel(),), getattr(p, "tp_sharded", False),
+                           device=grad.device)
+                for p in param_list(state.models)])
+
+            def norm_fn(g):
+                sq = g * g
+                zero = torch.zeros_like(sq)
+                own = torch.where(shard, sq, zero).sum()
+                torch.distributed.all_reduce(own, group=tp_group)
+                return torch.sqrt(torch.where(shard, zero, sq).sum() + own)
+
+        opt_state, _gnorm = tx.update_(state.flat, grad, state.opt_state,
+                                       norm_fn=norm_fn)
         return state._replace(opt_state=opt_state, step=state.step + 1), \
             metrics
 

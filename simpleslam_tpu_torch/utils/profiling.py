@@ -1,10 +1,12 @@
-"""Per-stage wall-clock accounting for the host-side pipeline."""
+"""Per-stage wall-clock accounting for the host-side pipeline, and a
+``torch.profiler`` trace context (the counterpart of the JAX package's
+``jax_trace``)."""
 from __future__ import annotations
 
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 
 class StageTimer:
@@ -40,3 +42,27 @@ class StageTimer:
                         f"{1e3 * t / max(n, 1):8.2f} ms/call "
                         f"{self.fps(name):8.2f} /s")
         return "\n".join(rows)
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: Optional[str]):
+    """Record a ``torch.profiler`` trace of the block (host and, where
+    CUDA is there, device activity) and write it to ``log_dir`` as a
+    Chrome trace (open in Perfetto or chrome://tracing) when a directory
+    is given; do nothing otherwise."""
+    if not log_dir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))

@@ -27,6 +27,9 @@ from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
 from simpleslam_tpu_torch.models import lightglue as tlg
 from simpleslam_tpu_torch.utils import zstd
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TREE = os.path.join(ROOT, "checkpoints", "learned_frontend")
 

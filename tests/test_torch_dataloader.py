@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 cv2 = pytest.importorskip("cv2")
 
 import simpleslam_tpu.tools.synth as jsynth

@@ -31,6 +31,9 @@ from simpleslam_tpu_torch.ops import se3 as tse3
 from simpleslam_tpu_torch.ops import triangulation as ttri
 from simpleslam_tpu_torch.utils.rng import TorchKey, frame_key
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 RTOL = 1e-4
 K = np.array([[707.0912, 0, 601.8873], [0, 707.0912, 183.1104], [0, 0, 1]],
              np.float32)

@@ -27,6 +27,9 @@ import chip_smoke
 from simpleslam_tpu_torch.data import dataloader
 from simpleslam_tpu_torch.utils import imgproc
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 H, W = 90, 120
 
 

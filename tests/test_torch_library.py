@@ -27,6 +27,9 @@ from simpleslam_tpu_torch.core import map as tmap
 from simpleslam_tpu_torch.ops import pnp as tpnp
 from simpleslam_tpu_torch.ops import triangulation as ttri
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 class JaxKey:
     """The port's key interface backed by ``jax.random``."""

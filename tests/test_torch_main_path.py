@@ -16,6 +16,7 @@ ATE_MEAN_BAND. The bound of the check here is SMALL_ATE_MAX; the card's
 1 cm. Neither fault is caught by the ATE
 bound here: the check's own counts catch them.
 """
+import functools
 import os
 import sys
 
@@ -58,8 +59,15 @@ def _run(weights, seed=0):
                                   weights=weights, seed=seed)
 
 
+@functools.lru_cache(maxsize=None)
+def _trained_run(seed):
+    """One run with the trained tree per RANSAC seed, shared by the tests
+    that read it (none of them changes it)."""
+    return _run(trained_state_dicts(on_error="raise"), seed)
+
+
 def test_main_path_check_passes_on_cpu():
-    res = _run(trained_state_dicts(on_error="raise"))
+    res = _trained_run(0)
     assert _smoke().main_path_ok(res, SMALL_ATE_MAX, kernel=False), res
     assert res["bootstrap_frame"] == 1 and res["keyframes"] >= 3, res
     assert res["ba_solves"] >= 1 and res["match_calls_fused_loop"] >= 2, res
@@ -91,8 +99,7 @@ def test_small_corridor_ate_matches_reference():
     and the mean ATE within ATE_MEAN_BAND."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from test_torch_fused import jax_corridor_reading
-    weights = trained_state_dicts(on_error="raise")
-    port = [_run(weights, seed) for seed in ATE_SEEDS]
+    port = [_trained_run(seed) for seed in ATE_SEEDS]
     ref = [jax_corridor_reading(True, N_FRAMES, seed) for seed in ATE_SEEDS]
     for p, r in zip(port, ref):
         assert p["lost"] == r["lost"] == 0, (p, r)

@@ -24,6 +24,9 @@ from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
                                                   from_jax_params,
                                                   jax_tree_to_state_dict)
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _np_tree(params):
     return jax.tree.map(np.asarray, params)

@@ -36,6 +36,9 @@ from simpleslam_tpu_torch.models import train as ttrain
 from simpleslam_tpu_torch.models import train_frontend
 from simpleslam_tpu_torch.tools import synth as tsynth
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _k(hw):
     K = jsynth.DEFAULT_K.copy()

@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 import jax
@@ -37,6 +38,9 @@ from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
                                                   LearnedMatcher,
                                                   from_jax_params)
 from simpleslam_tpu_torch.tools import real_eval as tre
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 N_KP = 256
 

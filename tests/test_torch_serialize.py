@@ -36,6 +36,9 @@ from simpleslam_tpu_torch.core.map import Map
 from simpleslam_tpu_torch.core.types import Features
 from simpleslam_tpu_torch.utils.serialize import load_state, save_state
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 cv2 = pytest.importorskip("cv2")
 
 

@@ -21,6 +21,9 @@ from simpleslam_tpu.viz.trajectory2d import umeyama_sim3 as j_umeyama
 from simpleslam_tpu_torch.core import trajectory_utils
 from simpleslam_tpu_torch.tools import synth, trajectory_eval
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 def _numpy_texture_only():
     raise RuntimeError("reference numpy path")

@@ -49,6 +49,9 @@ from simpleslam_tpu_torch.models.pipeline import (LearnedExtractor,
                                                   to_jax_params)
 from simpleslam_tpu_torch.ops import attention
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 J_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 T_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 MIXES = {"self": ("f32", "f32", "bf16"), "cross": ("bf16", "bf16", "bf16"),

@@ -28,6 +28,9 @@ from simpleslam_tpu.models import train as jtrain
 from simpleslam_tpu_torch.models import train as ttrain
 from simpleslam_tpu_torch.utils import resize
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("hw", [(144, 256), (48, 48)])
 def test_bicubic_resize_matches_jax_at_smooth_noise_octaves(hw):
