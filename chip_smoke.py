@@ -226,7 +226,23 @@ Phases:
               ``StructureFromMotion`` over phase 7's corridor, ORB and
               learned, with and without a mesh: the same keyframes, the
               ATE against the JAX CPU reading (SFM_JAX_CPU);
-  13. kernels one JSON line, one entry per kernel.
+  13. tools_viz the last slice: (a) ``diagnose e2e`` with bench.py's argv
+              (checked equal to phase 5b's) over its 40-frame corridor:
+              ATE within MAIN_ATE_MAX, no frame lost, 36 attention
+              launches per matcher call of the fused loop, and whether
+              the ATE reads phase 5b's; (b) ``diagnose ba``: the warm
+              solve's costs within DIAG_BA_COST_TOL of the CPU's, the same
+              good iterations, solves/s; (c) ``diagnose tri`` over one
+              pair; (d) ``tools.fused_cost`` on the card: at bench.py's
+              small spec equal to the host CPU's count, at its full spec
+              the four classes the benchmark reads (ordered, finite); (e) the ORB
+              host run over phase 7's frames without ``--headless``,
+              cv2's window calls recorded: phase 7's keyframes, its ATE
+              bound, the windows shown and whether matplotlib is there;
+              (f) ``--dataset custom`` over phase 7's frames as an mp4v
+              video: frame count and K held, the ORB run's keyframes and
+              lost frames (or the missing video writer reported);
+  14. kernels one JSON line, one entry per kernel.
 The line before the last is ``nvidia-smi``'s name and power limit; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -4164,6 +4180,296 @@ def run_photos_phase(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the tools and viz slice (diagnose, fused_cost, the live run,
+# the custom video dataset)
+# --------------------------------------------------------------------------- #
+
+# phase 5b's ATE on the card (PERF.md §6); (a) prints whether
+# diagnose e2e reads it again
+MAIN_CARD_ATE = 0.008606372070729632
+DIAG_BA_COST_TOL = 1e-4       # relative, the card's warm solve on the CPU's
+TRI_PAIR = ((4, 10),)
+VIDEO_FPS = 10.0
+
+
+@contextlib.contextmanager
+def recorded_windows():
+    """cv2's window calls replaced by recorders (no HighGUI window opens:
+    without a display some cv2 builds abort in ``namedWindow``): yields a
+    dict with ``shown`` (window names in order) and ``waits``; ``waitKey``
+    answers -1 (no key)."""
+    import cv2
+    rec = {"shown": [], "waits": 0, "made": []}
+
+    def wait(delay=0):
+        rec["waits"] += 1
+        return -1
+
+    fakes = {"namedWindow": lambda name, *a: rec["made"].append(name),
+             "resizeWindow": lambda *a: None,
+             "imshow": lambda name, img: rec["shown"].append(name),
+             "waitKey": wait, "destroyWindow": lambda *a: None,
+             "destroyAllWindows": lambda: None}
+    saved = {k: getattr(cv2, k, None) for k in fakes}
+    for k, fn in fakes.items():
+        setattr(cv2, k, fn)
+    try:
+        yield rec
+    finally:
+        for k, fn in saved.items():
+            setattr(cv2, k, fn)
+
+
+def run_diagnose_part(dev, weights) -> dict:
+    """(a) ``diagnose e2e`` with bench.py's argv (``--tri_kf2 --extra
+    "--fused_ba_points 2048 --local_ba_max_iters 8"``, 40 frames, capacity
+    8192) on its corridor rendered on the card: ATE within MAIN_ATE_MAX,
+    no frame lost, 36 attention launches per matcher call of the fused
+    loop; (b) ``diagnose ba``: the warm solve's costs within
+    DIAG_BA_COST_TOL of the same problem solved on the CPU, the same good
+    iterations, solves/s and seconds per iteration count; (c) ``diagnose
+    tri`` over one pair (learned), 36 launches per matcher call."""
+    import torch
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.ops import attention
+    from simpleslam_tpu_torch.tools import diagnose
+    kernel = attention.cuda_masked_attention
+    hw, K, bench_argv = bench_setup()
+    argv = diagnose.e2e_argv(True, 0.7, True, 8192,
+                             "--fused_ba_points 2048 --local_ba_max_iters 8")
+    same_config = parse_config(argv) == parse_config(bench_argv)
+    if not same_config:
+        raise RuntimeError(f"diagnose e2e argv {argv} is not bench.py's "
+                           f"{bench_argv}")
+    t0 = time.time()
+    frames, K_d, T = diagnose.full_scale_frames(*hw, n=40, device=dev)
+    render_s = time.time() - t0
+    if not np.allclose(K_d, K):
+        raise RuntimeError(f"diagnose's camera {K_d} is not bench.py's {K}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    e2e = diagnose.probe_e2e(frames, K_d, T, argv, device=dev,
+                             weights=weights,
+                             launches=lambda: kernel.launches)
+    torch.cuda.synchronize()
+    e2e["seconds"] = time.time() - t0
+    e2e["render_s"] = render_s
+    calls = e2e.get("matcher_calls", 0) - e2e.get("matcher_calls_bootstrap",
+                                                   0)
+    e2e["matcher_calls_fused_loop"] = calls
+    e2e["same_config_as_bench"] = same_config
+    e2e["ate_max"] = MAIN_ATE_MAX
+    e2e["ate_equals_phase5b_card"] = e2e.get("ate_m") == MAIN_CARD_ATE
+    e2e["phase5b_card_ate"] = MAIN_CARD_ATE
+    log_rows = e2e.pop("log", [])
+    e2e["kf_frames"] = [r[0] for r in log_rows if r[2]]
+    if not (e2e["bootstrap_frame"] is not None and e2e["finite"]
+            and e2e["lost"] == 0 and e2e["ate_m"] <= MAIN_ATE_MAX
+            and calls > 0 and e2e["launches_fused_loop"] == 36 * calls):
+        raise RuntimeError(f"diagnose e2e failed its checks: {e2e}")
+
+    t0 = time.time()
+    ba = diagnose.probe_ba(dev)
+    ba_cpu = diagnose.probe_ba("cpu", rounds=0, iters=())
+    ba["cpu"] = {k: ba_cpu[k] for k in ("cost_initial", "cost_final",
+                                        "good_iters")}
+    ba["seconds"] = time.time() - t0
+    rel = max(abs(ba[k] - ba_cpu[k]) / abs(ba_cpu[k])
+              for k in ("cost_initial", "cost_final"))
+    ba["cost_rel_err"] = rel
+    if not (rel <= DIAG_BA_COST_TOL
+            and ba["good_iters"] == ba_cpu["good_iters"]):
+        raise RuntimeError(f"diagnose ba: card against CPU {ba}")
+
+    t0 = time.time()
+    n0 = kernel.launches
+    rows = diagnose.probe_tri(device=dev, pairs=TRI_PAIR, weights=weights)
+    tri_launches = kernel.launches - n0
+    n_calls = len(TRI_PAIR)                # one matcher call a pair
+    tri = {"pairs": rows, "launches": tri_launches,
+           "launches_per_match_call": tri_launches / n_calls,
+           "seconds": time.time() - t0}
+    if not (rows and all(r["raw"] > 0 and r["tri_keep"] > 0 for r in rows)
+            and tri_launches == 36 * n_calls):
+        raise RuntimeError(f"diagnose tri failed its checks: {tri}")
+    return {"e2e": e2e, "ba": ba, "tri": tri}
+
+
+def run_fused_cost_part(dev) -> dict:
+    """(d) ``tools.fused_cost`` on the card: at bench.py's small spec
+    (180x410, 512 keypoints, its argv and camera) the four classes equal
+    the same count on the host CPU (the attention is counted by formula,
+    so the device must not matter), 36 attention calls per matcher
+    forward, finite and ``skip < eval <= kf <= static``; then at bench.py's
+    full spec (376x1232, 2048 keypoints) on the card alone, ordered and
+    finite: the counts the benchmark weights by frame class."""
+    import torch
+    from simpleslam_tpu_torch.tools import fused_cost
+
+    def count(small, device):
+        hw, K, argv = bench_setup(small=small)
+        n_kp = int(argv[argv.index("--max_features") + 1])
+        spec = {"argv": argv, "hw": list(hw), "n_kp": n_kp, "desc_dim": 128,
+                "desc_dtype": "float32", "K": K.tolist()}
+        t0 = time.time()
+        detail = {}
+        flops = fused_cost.branch_flops(spec, device, detail=detail)
+        calls = {k: len(d["attention_calls"]) for k, d in detail.items()}
+        ok = (sorted(flops) == ["eval", "kf", "skip", "static"]
+              and all(math.isfinite(v) and v > 0 for v in flops.values())
+              and flops["skip"] < flops["eval"] <= flops["kf"]
+              <= flops["static"]
+              and all(c % 36 == 0 for c in calls.values())
+              and calls["skip"] < calls["eval"] < calls["kf"]
+              < calls["static"])
+        return ok, {"spec_hw": list(hw), "n_kp": n_kp, "flops": flops,
+                    "attention_flops": {k: d["attention"]
+                                        for k, d in detail.items()},
+                    "attention_seen": {k: d["attention_seen"]
+                                       for k, d in detail.items()},
+                    "attention_calls": calls,
+                    "seconds": time.time() - t0}
+
+    ok_card, card = count(True, dev)
+    ok_cpu, cpu = count(True, "cpu")
+    ok_full, full = count(False, dev)
+    res = {"small_card": card, "small_cpu": cpu, "full_card": full,
+           "cpu_threads": torch.get_num_threads(),
+           "small_equal": card["flops"] == cpu["flops"]}
+    if not (ok_card and ok_cpu and ok_full and res["small_equal"]):
+        raise RuntimeError(f"fused_cost failed its checks: {res}")
+    return res
+
+
+def run_live_part(dev, base: str, orb_host: dict) -> dict:
+    """(e) the README's ORB host command over phase 7's frames without
+    ``--headless``, cv2's window calls recorded: phase 7's keyframes, an
+    ATE within phase 7's bound; the windows shown, whether matplotlib is
+    there (without it the trajectory plot raises and the run logs "viz
+    failed", as the reference's does), and the driver windows built from
+    the run's system after it."""
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    argv = ["--dataset", "kitti", "--base_dir", base, "--no_viz3d"]
+    warned = []
+    real_warning = run_slam.logger.warning
+    run_slam.logger.warning = lambda msg, *a: warned.append(msg % a)
+    t0 = time.time()
+    try:
+        with recorded_windows() as rec, recorded_systems() as made:
+            out = run_slam.run(parse_config(argv))
+            shown_run = list(rec["shown"])
+            run_slam._show_driver_windows(made[0])
+            shown_after = rec["shown"][len(shown_run):]
+    finally:
+        run_slam.logger.warning = real_warning
+    res = {"argv": argv, "run_s": time.time() - t0,
+           "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+           "ate_m": out.ate, "ate_max": orb_host["ate_max"],
+           "keyframes": out.n_keyframes, "kf_frames": out.kf_frames,
+           "phase7_kf_frames": orb_host["kf_frames"],
+           "lost": out.tracking_lost_count, "frames_per_s": out.fps,
+           "windows_made": rec["made"],
+           "windows_shown": sorted(set(shown_run)),
+           "imshow_calls": len(shown_run), "wait_key_calls": rec["waits"],
+           "viz_failed_warnings": sum(w.startswith("viz failed")
+                                      for w in warned),
+           "first_viz_warning": next((w for w in warned
+                                      if w.startswith("viz failed")), None),
+           "driver_windows_after_run": shown_after}
+    if not (out.kf_frames == orb_host["kf_frames"] and out.ate is not None
+            and out.ate <= orb_host["ate_max"]
+            and out.tracking_lost_count == 0 and "ui" in rec["made"]
+            and {"keyframes", "matches prev->cur", "tracks"}
+            <= set(shown_after)):
+        raise RuntimeError(f"live run failed its checks: {res}")
+    return res
+
+
+def run_custom_part(dev, base: str, tmp: str) -> dict:
+    """(f) ``--dataset custom``: phase 7's frames as an mp4v video and a
+    ``calibration.pkl`` of their camera; the decoded frame count and K
+    held, then the ORB host run over the video (keyframes, lost frames).
+    Where this machine's cv2 cannot write mp4v the part is reported as not
+    held."""
+    import pickle
+    import cv2
+    from simpleslam_tpu_torch import run_slam
+    from simpleslam_tpu_torch.config import parse_config
+    from simpleslam_tpu_torch.data import Sequence
+    src = Sequence.load(parse_config(["--dataset", "kitti",
+                                      "--base_dir", base]))
+    frames = [src.frame(i) for i in range(len(src))]
+    H, W = frames[0].shape[:2]
+    os.makedirs(os.path.join(tmp, "custom"), exist_ok=True)
+    path = os.path.join(tmp, "custom", "custom_compress.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                             VIDEO_FPS, (W, H))
+    res = {"writer_opened": bool(writer.isOpened()),
+           "video_backends": [cv2.videoio_registry.getBackendName(b)
+                              for b in cv2.videoio_registry.getBackends()]
+           if hasattr(cv2, "videoio_registry") else None}
+    if not res["writer_opened"]:
+        res["held"] = False
+        res["why"] = "cv2 on this machine cannot write mp4v"
+        return res
+    for f in frames:
+        writer.write(np.ascontiguousarray(f))
+    writer.release()
+    with open(os.path.join(tmp, "custom", "calibration.pkl"), "wb") as f:
+        pickle.dump((src.K, np.zeros(5)), f)
+    argv = ["--dataset", "custom", "--base_dir", tmp]
+    seq = Sequence.load(parse_config(argv))
+    res.update(frames_written=len(frames), frames_decoded=len(seq),
+               hw=list(seq.frame(0).shape),
+               K_equal=bool(np.array_equal(seq.K, src.K)),
+               gt=seq.gt is not None,
+               mean_abs_diff_frame0=float(np.abs(
+                   seq.frame(0).astype(int) - frames[0]).mean()))
+    if not (len(seq) == len(frames) and res["K_equal"] and not res["gt"]):
+        raise RuntimeError(f"custom video failed its checks: {res}")
+    t0 = time.time()
+    out = run_slam.run(parse_config(argv + ["--headless", "--no_viz3d"]))
+    res.update(held=True, run_s=time.time() - t0,
+               keyframes=out.n_keyframes, kf_frames=out.kf_frames,
+               lost=out.tracking_lost_count,
+               frames_posed=len(out.poses_cw), frames_per_s=out.fps)
+    return res
+
+
+def run_tools_viz_phase(dev, weights, orb_host: dict) -> dict:
+    """Phase 13: (a)-(c) ``tools.diagnose``, (d) ``tools.fused_cost``,
+    (e) the live run, (f) the ``custom`` video dataset; phase 7's 40
+    corridor frames rendered again (``tools.synth``, <1 s) for (e) and
+    (f). Each part raises on a failed check."""
+    import tempfile
+    from simpleslam_tpu_torch.tools import synth
+    res = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.time()
+            res.update(run_diagnose_part(dev, weights))
+            res["diagnose_s"] = time.time() - t0
+            t0 = time.time()
+            res["fused_cost"] = run_fused_cost_part(dev)
+            res["fused_cost"]["seconds"] = time.time() - t0
+            base = os.path.join(tmp, "synth")
+            with contextlib.redirect_stdout(sys.stderr):
+                if synth.main(["--out", base, "--frames",
+                               str(CLI_FRAMES)]) != 0:
+                    raise RuntimeError("tools.synth failed")
+            res["live"] = run_live_part(dev, base, orb_host)
+            t0 = time.time()
+            res["custom"] = run_custom_part(dev, base, tmp)
+            res["custom"]["seconds"] = time.time() - t0
+        finally:
+            os.chdir(cwd)
+    return res
+
+
 def main() -> None:
     t_all = time.time()
     import torch
@@ -4342,7 +4648,12 @@ def main() -> None:
     bres = run_batch_phase(dev, weights)
     log("batch", t0, nvidia_smi=smi, **bres)
 
-    # 13. kernels ------------------------------------------------------------
+    # 13. tools and viz: diagnose, fused_cost, the live run, custom video --
+    t0 = time.time()
+    vres = run_tools_viz_phase(dev, weights, cres["orb_host"])
+    log("tools_viz", t0, nvidia_smi=smi, **vres)
+
+    # 14. kernels ------------------------------------------------------------
     # the self-attention mix: float32 q, k and bf16 v, the main path's
     # heavier call (its cross-attention mix is in phase 3's and phase 6b's
     # lines)
@@ -4366,6 +4677,8 @@ def main() -> None:
         bres["batch_match"]["launches_per_batched_forward"],
         "launches_per_match_call_real_eval":
         pres["real_eval"]["launches_per_match_call"],
+        "launches_diagnose_e2e": vres["e2e"]["launches_fused_loop"],
+        "launches_diagnose_tri": vres["tri"]["launches"],
         "max_abs_err": max(kres["max_abs_err"].values()),
         "ms": t_self["kernel"]["ms"],
         "device_ms": t_self["kernel"]["device_ms"],

@@ -3,9 +3,9 @@
 
 Each field and flag keeps the reference's name and default, so a launch
 command that sets only these flags configures either package (the README's
-and ``bench.py``'s argv included). ``headless`` and ``no_viz3d`` are
-parsed for that reason; viz waits in the roadmap (``run_slam.run`` raises
-without ``--headless``). Global BA (``gba_*``), loop closure (``loop_*``),
+and ``bench.py``'s argv included). ``--headless`` turns off the live windows
+and ``--no_viz3d`` the 3-D viewer; ``--viz_ba`` logs (and, in a live run,
+shows) the before/after local-BA reprojection overlays. Global BA (``gba_*``), loop closure (``loop_*``),
 the fused loop's rescue (``--fused_rescue_after``), saved and resumed
 state (``--save_state``, ``--resume``), localisation-only mode
 (``--localize_only``) and the keyframe thumbnails' ``--kf_thumb_hw`` are
@@ -14,10 +14,10 @@ reads it either (``ops/triangulation.py::MultiViewTriangulator`` takes its
 own radius). So do ``--mesh_devices`` and ``--trace_dir``: the
 reference's ``run_slam`` reads neither (it imports ``jax_trace`` and never
 calls it); ``parallel/mesh.py::make_mesh`` and
-``utils/profiling.py::torch_trace`` take them from a caller. Flags of the
-paths not yet ported (``--viz_ba`` and the TPU package's padding and
-precision knobs) and ``--fps``, which nothing in the reference reads, are
-absent: the parser rejects them rather than ignore them. ``--matcher`` is
+``utils/profiling.py::torch_trace`` take them from a caller. The TPU
+package's padding and precision knobs and ``--fps``, which nothing in the
+reference reads, are absent: the parser rejects them rather than ignore
+them. ``--matcher`` is
 parsed and has no effect: ``bf`` and ``flann`` are both the brute-force
 matcher, as in the reference. ``--device`` (the port's own) chooses
 where ``run_slam.main`` runs; it is no config field. ``yaml`` is imported
@@ -160,6 +160,8 @@ class SLAMConfig:
                                            # the end (and on SIGINT)
     resume: str = ""                       # resume pipeline state from this
                                            # file
+    viz_ba: bool = False                   # before/after local-BA
+                                           # reprojection overlays
     # parsed only: run_slam reads neither, as in the reference
     mesh_devices: int = 0                  # 0 => every rank of the group
     trace_dir: str = ""                    # torch.profiler trace output dir
@@ -188,6 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("no_viz3d", "headless", "loop_closure", "fused",
                  "stage_all", "gba_enable"):
         p.add_argument(f"--{flag}", action="store_true")
+    p.add_argument("--viz_ba", action="store_true",
+                   help="Show before/after-BA reprojection overlay windows")
     p.add_argument("--detector", choices=["orb", "sift", "akaze", "aliked"],
                    default=d.detector)
     p.add_argument("--matcher", choices=["bf", "flann"], default=d.matcher,

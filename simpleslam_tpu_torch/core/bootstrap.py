@@ -31,6 +31,7 @@ from simpleslam_tpu_torch.ops import epipolar
 from simpleslam_tpu_torch.ops.maskops import masked_fraction, masked_median
 from simpleslam_tpu_torch.ops.projection import pixels_to_normalized
 from simpleslam_tpu_torch.ops.triangulation import triangulate_two_view
+from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.precision import highest_precision
 from simpleslam_tpu_torch.utils.rng import TorchKey
 
@@ -135,8 +136,10 @@ def evaluate_two_view(key, p0, p1, valid, K, ransac_px: float,
 
 def evaluate_two_view_bootstrap_with_masks(
         K, pts_ref, pts_cur, params: InitParams = InitParams(), valid=None,
-        key=None, device="cpu") -> Optional[TwoViewDecision]:
-    """H-vs-F selection + pose + final inlier mask (host decision tree)."""
+        key=None, device=None) -> Optional[TwoViewDecision]:
+    """H-vs-F selection + pose + final inlier mask (host decision tree).
+    ``device``: None is the GPU (raises without one), "cpu" the CPU."""
+    dev = resolve_device(device)
     pts_ref = np.asarray(pts_ref, np.float32)
     pts_cur = np.asarray(pts_cur, np.float32)
     n = len(pts_ref)
@@ -146,7 +149,6 @@ def evaluate_two_view_bootstrap_with_masks(
         key = TorchKey(0)
     if n < 8:
         return None
-    dev = torch.device(device)
     out = evaluate_two_view(
         key, torch.as_tensor(pts_ref, device=dev),
         torch.as_tensor(pts_cur, device=dev),

@@ -29,9 +29,9 @@ re-orthonormalisation, the F/E fits and triangulation.
 Behaviour is the reference's fused step: same thresholds, trigger order,
 fallbacks, caps and RNG sites (``frame_key(base, frame_no, SITE_*)``), and
 the same divergences from the host driver (its module docstring lists
-them). Left out: ``force_branch`` (XLA cost accounting), queued in the
-roadmap. ``apply_host_correction`` pushes a loop closure's host-side map
-rewrite back into the state.
+them). ``force_branch`` answers the step's branch reads for cost
+accounting (``tools/fused_cost.py``). ``apply_host_correction`` pushes a
+loop closure's host-side map rewrite back into the state.
 """
 from __future__ import annotations
 
@@ -531,12 +531,30 @@ class FusedStep:
     Counters: ``host_reads`` (branch flags read), ``ba_solves`` (local BAs
     run) and ``ba_shift`` (a device scalar: the largest change local BA
     made to a keyframe pose entry, over all solves).
+
+    ``force_branch`` (cost accounting only, see :func:`build_fused_step`):
+    branch reads answered without looking at the device.
     """
+
+    # the answers ``force_branch`` gives the step's branch reads, by name
+    # (a read not named here is made): PnP and its wide retry, keyframe
+    # relocalisation, whether global relocalisation is due, its gate, then
+    # the keyframe policy's consider, promote, local BA and compaction
+    FORCED = {"skip": {"consider": False},
+              "eval": {"consider": True, "promote": False},
+              "kf": {"consider": True, "promote": True, "ba": True},
+              "static": {"track": False, "reloc": False, "greloc_due": True,
+                         "greloc": False, "consider": True, "promote": True,
+                         "ba": True, "compact": True}}
 
     def __init__(self, fc: FusedConfig, K: np.ndarray,
                  extract_fn: Callable[[torch.Tensor], Features],
                  match_fn: Callable[[Features, Features], Matches],
-                 device=None, undistort_maps=None):
+                 device=None, undistort_maps=None, force_branch=None):
+        if force_branch is not None and force_branch not in self.FORCED:
+            raise ValueError(f"force_branch {force_branch!r}: one of "
+                             f"{sorted(self.FORCED)} or None")
+        self.forced = self.FORCED.get(force_branch, {})
         self.fc = fc
         self.undistort_maps = undistort_maps
         self.device = resolve_device(device)
@@ -555,6 +573,11 @@ class FusedStep:
         """One device flag on the host (the branch reads the step counts)."""
         self.host_reads += 1
         return bool(flag.item())
+
+    def _branch(self, name: str, flag: torch.Tensor) -> bool:
+        """The branch read ``name``, unless ``force_branch`` answers it."""
+        forced = self.forced.get(name)
+        return self._read(flag) if forced is None else forced
 
     def _scalar(self, v) -> torch.Tensor:
         """A host integer on the device, by a fill (a copy would wait)."""
@@ -650,12 +673,12 @@ class FusedStep:
         k_pnp = frame_key(state.key, frame_no, SITE_PNP)
         use, T_est, inl, n_inl, n_cand, assoc = self._attempt(
             state, feats, T_pred, k_pnp, fc.proj_radius)
-        ok = self._read(use)
+        ok = self._branch("track", use)
         if not ok and fc.assoc_wide_factor > 1.0:
             use, T_est, inl, n_inl, n_cand, assoc = self._attempt(
                 state, feats, T_pred, k_pnp,
                 fc.proj_radius * fc.assoc_wide_factor)
-            ok = self._read(use)
+            ok = self._branch("track", use)
         if ok:
             return T_est, True, False, False, n_inl, n_cand, assoc, inl
 
@@ -687,13 +710,14 @@ class FusedStep:
                 frame_key(state.key, frame_no, SITE_GRELOC), state,
                 _row(state.kf_lm_row, best)[m.idx0], m.idx1, m.valid, feats,
                 _row(state.kf_pose, best))
-            if self._read((_row(sims, best) >= fc.greloc_min_sim) & ok_g):
+            if self._branch("greloc",
+                            (_row(sims, best) >= fc.greloc_min_sim) & ok_g):
                 return T_g, False, True
             return essential()
 
         def greloc_or_essential():
-            if fc.global_reloc and self._read(
-                    state.lost_streak + 1 >= fc.greloc_after):
+            if fc.global_reloc and self._branch(
+                    "greloc_due", state.lost_streak + 1 >= fc.greloc_after):
                 return greloc()
             return essential()
 
@@ -704,7 +728,7 @@ class FusedStep:
                 frame_key(state.key, frame_no, SITE_RELOC), state,
                 _row(state.kf_lm_row, slot)[m.idx0], m.idx1, m.valid, feats,
                 T_pred)
-            if self._read(ok_r):
+            if self._branch("reloc", ok_r):
                 T_new, relocd, grelocd = T_r, True, False
             else:
                 T_new, relocd, grelocd = greloc_or_essential()
@@ -897,15 +921,17 @@ class FusedStep:
         rot = se3.rotation_angle_deg(
             state.Tcw[:3, :3] @ _row(state.kf_pose, prev_slot)[:3, :3].T)
         zero = torch.zeros((), dtype=_LONG, device=self.device)
-        if not self._read((age > fc.kf_cooldown) | (rot >= fc.kf_min_rot_deg)):
+        if not self._branch("consider", (age > fc.kf_cooldown)
+                            | (rot >= fc.kf_min_rot_deg)):
             return False, zero, False, False
         kf_m = self._match_ransac(
             frame_key(state.key, frame_no, SITE_KF_MATCH),
             self._kf_features(state, prev_slot), feats)
         n_inl, ratio, med = self._kf_signals(state, feats, kf_m)
         weak = (n_inl < fc.kf_min_inliers) | (ratio < fc.kf_min_ratio)
-        if not self._read((age > fc.kf_cooldown) | weak |
-                          (med > fc.kf_max_disp) | (rot > fc.kf_min_rot_deg)):
+        if not self._branch("promote", (age > fc.kf_cooldown) | weak |
+                            (med > fc.kf_max_disp)
+                            | (rot > fc.kf_min_rot_deg)):
             return False, zero, False, True
 
         slot = state.kf_count % Kw
@@ -936,11 +962,11 @@ class FusedStep:
         state.last_kf_frame_no = self._scalar(frame_no)
         past_rewrite = torch.clamp(state.kf_count - 1 - fc.local_ba_window,
                                    min=0) >= state.ba_floor_kf
-        ba_ran = self._read((n_new >= fc.local_ba_min_new_points)
-                            & (state.kf_count >= 2) & past_rewrite)
+        ba_ran = self._branch("ba", (n_new >= fc.local_ba_min_new_points)
+                              & (state.kf_count >= 2) & past_rewrite)
         if ba_ran:
             self._local_ba(state)
-        if self._read(state.n_points + fc.max_new > C):
+        if self._branch("compact", state.n_points + fc.max_new > C):
             self._compact_map(state, frame_no)
         return True, n_new, ba_ran, True
 
@@ -991,10 +1017,30 @@ class FusedStep:
 def build_fused_step(fc: FusedConfig, K: np.ndarray,
                      extract_fn: Callable[[torch.Tensor], Features],
                      match_fn: Callable[[Features, Features], Matches],
-                     device=None, undistort_maps=None) -> FusedStep:
+                     device=None, undistort_maps=None,
+                     force_branch=None) -> FusedStep:
     """The per-frame step (see :class:`FusedStep`). ``extract_fn``: (H, W)
     float grey -> Features (ALIKED); ``match_fn``: (Features, Features) ->
     Matches (LightGlue); ``device``: None is the GPU (raises without one),
     "cpu" the CPU; ``undistort_maps``: (mapx, mapy) on the device
-    (``SLAMSystem._undistort_maps``) or None."""
-    return FusedStep(fc, K, extract_fn, match_fn, device, undistort_maps)
+    (``SLAMSystem._undistort_maps``) or None.
+
+    ``force_branch``: COST ACCOUNTING ONLY (``tools/fused_cost.py``); never
+    track with it. Where the reference forces its ``lax.cond`` arms, the
+    port answers its host reads itself (``FusedStep.FORCED``):
+      'skip'   -- not a candidate (no keyframe match, no burst);
+      'eval'   -- a candidate evaluated (the keyframe match) and refused;
+      'kf'     -- a keyframe: insert, triangulate, and local BA (XLA counts
+                  both arms of the reference's BA cond inside the burst);
+      'static' -- every arm in one step: PnP and its wide retry fail,
+                  keyframe relocalisation fails, global relocalisation is
+                  tried and refused, the essential-matrix fallback runs,
+                  then the 'kf' burst with map compaction. Each arm the
+                  config builds runs once, so this is the most one frame
+                  can cost, the port's counterpart of XLA's both-arms
+                  count of the unforced program.
+    'skip', 'eval' and 'kf' leave the tracking reads real: on a frame
+    that PnP tracks they count no recovery arm. The step writes its state
+    in place: give a forced step a clone."""
+    return FusedStep(fc, K, extract_fn, match_fn, device, undistort_maps,
+                     force_branch)

@@ -58,15 +58,15 @@ def make_thumb(bgr, hw: Tuple[int, int] = (640, 360)) -> bytes:
 
 def decode_thumb(blob: bytes) -> Optional[np.ndarray]:
     """The inverse of :func:`make_thumb`: a BGR uint8 array, or None for an
-    empty thumbnail or without cv2."""
+    empty or undecodable thumbnail or without cv2 (the reference's rule)."""
     if not blob:
         return None
     try:
         import cv2
-    except ImportError:
+        jpeg = native.decompress(blob)
+        return cv2.imdecode(np.frombuffer(jpeg, np.uint8), cv2.IMREAD_COLOR)
+    except Exception:
         return None
-    jpeg = native.decompress(blob)
-    return cv2.imdecode(np.frombuffer(jpeg, np.uint8), cv2.IMREAD_COLOR)
 
 
 def rot_deg_between(Tcw_prev: np.ndarray, Tcw_curr: np.ndarray) -> float:

@@ -4,8 +4,8 @@ pandas.
 
 * ``load_sequence``     -- KITTI seq-05 ``image_0/*.png``, Malaga
   extract-07 ``*_left.jpg``, TUM fr3 ``rgb/*.png``, ``parking``; ``custom``
-  (an mp4) needs a video decoder and raises, as the reference does without
-  cv2;
+  decodes ``custom/custom_compress.mp4`` through ``cv2.VideoCapture`` into
+  in-memory BGR frames (without cv2 it raises, as the reference does);
 * ``load_frame_pair``, ``load_stereo_paths``;
 * ``load_calibration``  -- KITTI's ``calib.txt`` when the sequence has one,
   else the hard-coded seq-05 / Malaga / TUM-fr3 cameras, a pickle for
@@ -87,7 +87,18 @@ def load_sequence(args) -> List[Frame]:
             prefix, "rgbd_dataset_freiburg3_long_office_household", "rgb",
             "*.png")
     elif name == "custom":
-        raise RuntimeError("custom video decoding requires cv2")
+        try:
+            import cv2
+        except ImportError as e:
+            raise RuntimeError("custom video decoding requires cv2") from e
+        cap = cv2.VideoCapture(os.path.join(prefix, "custom_compress.mp4"))
+        seq = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            seq.append(frame)
+        cap.release()
     else:
         raise ValueError(f"Unknown dataset: {name}")
 

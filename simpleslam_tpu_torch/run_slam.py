@@ -16,11 +16,14 @@ continues from such a file, and ``--resume --localize_only`` tracks against
 its map frozen, the first pose from global relocalisation. A lens with
 distortion is undistorted on the device: on the host each raw frame before
 extraction, in the fused step each grey frame. Tensors live on the system's
-device; the map and the decisions live on the host. Not ported yet (it
-raises): the live windows (``run`` needs ``--headless``).
+device; the map and the decisions live on the host. Without ``--headless``
+the host loop shows its windows after each frame (the live trajectory
+plot, the keyframe strip, the match overlay and the track trails, the 3-D
+viewer where open3d is installed) and polls the keyboard (p pause, n
+step, q quit); ``--viz_ba`` adds the local-BA reprojection overlays.
 
 Run:  python -m simpleslam_tpu_torch.run_slam --dataset kitti \
-          --base_dir <dir> --headless --no_viz3d [--fused] [--device cpu]
+          --base_dir <dir> [--headless] --no_viz3d [--fused] [--device cpu]
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from simpleslam_tpu_torch.ops import epipolar, pnp, projection, se3
 from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
 from simpleslam_tpu_torch.utils.device import resolve_device
 from simpleslam_tpu_torch.utils.profiling import StageTimer
-from simpleslam_tpu_torch.viz import Trajectory2D
+from simpleslam_tpu_torch.viz import Trajectory2D, Visualizer3D, VizUI
 from simpleslam_tpu_torch.utils.rng import (SITE_ESS, SITE_GRELOC,
                                             SITE_KF_MATCH, SITE_KF_MATCH2,
                                             SITE_LOOP, SITE_PNP,
@@ -158,6 +161,10 @@ class SLAMSystem:
         self._lost_streak = 0
         self._vel_reset = False
         self._place_vecs: List[np.ndarray] = []
+        self.want_viz = False          # run() sets it for a live run
+        self._prev_img = None
+        self._last_matches = None      # the match overlay's inputs
+        self._trackbook = None
         self._key = key if key is not None else TorchKey(cfg.seed)
         self._base_key = self._key
         self.img_hw = img_hw
@@ -493,6 +500,10 @@ class SLAMSystem:
                         exclude_cur_kp=used)
         if len(new_ids) >= cfg.local_ba_min_new_points and len(self.kfs) >= 2:
             try:
+                poses_before = None
+                if cfg.viz_ba:
+                    poses_before = {kf.idx: np.array(kf.pose)
+                                    for kf in self.kfs}
                 with self.timer.stage("local_ba"):
                     self.local_ba_solves += bool(local_bundle_adjustment(
                         self.world_map, self.K, self.kfs,
@@ -500,6 +511,14 @@ class SLAMSystem:
                         window_size=cfg.local_ba_window,
                         max_points=cfg.local_ba_max_points,
                         max_iters=cfg.local_ba_max_iters))
+                if cfg.viz_ba:
+                    from simpleslam_tpu_torch.viz.visualize_ba import \
+                        visualize_ba_window
+                    first = max(1, len(self.kfs) - cfg.local_ba_window)
+                    visualize_ba_window(
+                        self.world_map, self.K, self.kfs,
+                        list(range(first, len(self.kfs))), poses_before,
+                        show=self.want_viz)
             except Exception:
                 # BA must never kill tracking (the reference's rule)
                 logger.exception("[Local BA] failed; tracking continues")
@@ -589,6 +608,19 @@ class SLAMSystem:
         with self.timer.stage("keyframe"):
             if not self.cfg.localize_only:   # the map is frozen there
                 self._maybe_keyframe(frame_idx, img, feats)
+        if self.want_viz:
+            from simpleslam_tpu_torch.viz.windows import TrackBook
+            if self._trackbook is None:
+                self._trackbook = TrackBook()
+            kp_prev = prev_feats.kpts.cpu().numpy()
+            kp_cur = feats.kpts.cpu().numpy()
+            i0 = matches_prev.idx0.cpu().numpy()
+            i1 = matches_prev.idx1.cpu().numpy()
+            mv = matches_prev.valid.cpu().numpy()
+            self._trackbook.advance(kp_prev, kp_cur, i0, i1, mv)
+            self._last_matches = (self._prev_img, img, kp_prev, kp_cur,
+                                  i0, i1, mv)
+        self._prev_img = img
         # the global-BA milestone, keyed on the keyframe count with a dedup
         # so frames that add no keyframe never re-solve an unchanged map
         if self.cfg.gba_every and self.cfg.gba_enable and self.initialised:
@@ -898,11 +930,33 @@ def _run_fused_over(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem,
         pf.close()
 
 
-# the paths that ``run`` does not take yet, each with its roadmap item
-_NOT_PORTED = (
-    ("headless", False, "live windows (the non-headless run) wait for viz, "
-                        "ROADMAP A.11; pass --headless"),
-)
+def _show_driver_windows(system: SLAMSystem) -> None:
+    """The live run's windows: the keyframe thumbnail strip, the
+    previous-to-current match overlay and the track trails."""
+    try:
+        import cv2
+    except ImportError:
+        return
+    from simpleslam_tpu_torch.viz.tracks import draw_tracks
+    from simpleslam_tpu_torch.viz.windows import (build_kf_strip,
+                                                  build_match_overlay)
+    strip = build_kf_strip(system.kfs)
+    if strip is not None:
+        cv2.imshow("keyframes", strip)
+    if system._last_matches is not None:
+        prev_img, cur_img, kp0, kp1, i0, i1, mv = system._last_matches
+        if prev_img is not None:
+            overlay = build_match_overlay(prev_img, cur_img, kp0, kp1,
+                                          i0, i1, mv)
+            if overlay is not None:
+                cv2.imshow("matches prev->cur", overlay)
+        if system._trackbook is not None:
+            img = cur_img.cpu().numpy() if torch.is_tensor(cur_img) \
+                else np.asarray(cur_img)
+            if img.ndim != 3:
+                img = cv2.cvtColor(img.astype(np.uint8), cv2.COLOR_GRAY2BGR)
+            cv2.imshow("tracks", draw_tracks(img, system._trackbook.tracks))
+    cv2.waitKey(1)
 
 
 def _check_state_flags(cfg: SLAMConfig) -> None:
@@ -945,7 +999,9 @@ def _resume(cfg: SLAMConfig, seq: Dataset, system: SLAMSystem):
                     "(map frozen)", cfg.resume, len(kfs), len(m))
         return prev_feats, 1
     last = frame_ids[-1] if frame_ids else 0
-    prev_feats = system.extract(system.preprocess(seq.frame(last)))
+    img_last = system.preprocess(seq.frame(last))
+    prev_feats = system.extract(img_last)
+    system._prev_img = img_last
     logger.info("resumed from %s: %d poses, %d KFs, %d landmarks; "
                 "continuing at frame %d", cfg.resume, len(m.poses),
                 len(kfs), len(m), last + 1)
@@ -962,10 +1018,10 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     ``trajectory_<dataset>.png`` (needs matplotlib; a warning without).
     ``cfg.resume``: start from a saved state (:func:`_resume`);
     ``cfg.save_state``: write the state at the end, and stop after the
-    frame in flight on SIGINT (the host loop)."""
-    for name, bad, why in _NOT_PORTED:
-        if bool(getattr(cfg, name, not bad)) == bad:
-            raise NotImplementedError(why)
+    frame in flight on SIGINT (the host loop). Without ``cfg.headless``
+    the host loop updates the live windows after each frame (a failure
+    there is logged as ``viz failed``, as without matplotlib) and stops
+    when the keyboard UI quits; the fused loop shows none."""
     _check_state_flags(cfg)
     device = resolve_device(device)
     logging.basicConfig(level=logging.INFO,
@@ -982,7 +1038,11 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     img0 = seq.frame(0)
     system = SLAMSystem(cfg, seq.K, seq.D, img_hw=img0.shape[:2],
                         device=device, key=key)
-    traj2d = Trajectory2D(gt44, dataset=cfg.dataset)
+    headless = cfg.headless
+    system.want_viz = not headless
+    traj2d = Trajectory2D(gt44, dataset=cfg.dataset, live=not headless)
+    viz3d = Visualizer3D(enabled=not (cfg.no_viz3d or headless))
+    ui = VizUI(enabled=not headless)
 
     def push_poses(frame_idx):
         while len(traj2d.est) < len(system.world_map.poses):
@@ -1034,6 +1094,18 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
             prev_feats = system.process_frame(frame_idx, img, prev_feats)
             if system.initialised and system.world_map.poses:
                 push_poses(frame_idx)
+            if not headless:
+                try:
+                    viz3d.update(system.world_map.get_point_array(),
+                                 system.world_map.get_color_array(),
+                                 np.asarray([-p[:3, :3].T @ p[:3, 3]
+                                             for p in system.world_map.poses]))
+                    traj2d.draw()
+                    _show_driver_windows(system)
+                except Exception as e:
+                    logger.warning("viz failed: %s", e)
+                if not ui.poll():
+                    break
     finally:
         if old_handler is not None:
             signal.signal(signal.SIGINT, old_handler)
@@ -1072,6 +1144,8 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
         except Exception:
             # the run's result still stands (the reference's rule)
             logger.exception("could not save state to %s", cfg.save_state)
+    ui.close()
+    viz3d.close()
 
     if gt44 is not None and len(res.poses_cw) >= 2 and res.frame_ids:
         est = np.stack(res.poses_cw)

@@ -3,9 +3,11 @@
 
 ``push(frame_idx, T_cw)`` stores the camera centre ``-R^T t`` and the
 ground-truth centre of that frame. The plotted estimate uses the
-reference's default fixed "alignment" (s = 2, R = I, t = 0). ``draw``
-and ``save`` import matplotlib when called; without it they raise
-``ImportError``. The live window of a non-headless run is not ported.
+reference's default fixed "alignment" (s = 2, R = I, t = 0); with
+``umeyama=True`` it is the Umeyama Sim(3) fit to the ground truth once ten
+poses are paired. ``live=True`` redraws the figure in a window at each
+``draw`` (a non-headless run). ``draw`` and ``save`` import matplotlib
+when called; without it they raise ``ImportError``.
 """
 from __future__ import annotations
 
@@ -14,13 +16,36 @@ from typing import Optional
 import numpy as np
 
 
+def umeyama_sim3(src: np.ndarray, dst: np.ndarray):
+    """Similarity (s, R, t) minimising ||dst - (s R src + t)||^2
+    (Umeyama)."""
+    mu_s = src.mean(0)
+    mu_d = dst.mean(0)
+    sc = src - mu_s
+    dc = dst - mu_d
+    cov = dc.T @ sc / len(src)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    var_s = (sc ** 2).sum() / len(src)
+    s = np.trace(np.diag(D) @ S) / max(var_s, 1e-12)
+    t = mu_d - s * R @ mu_s
+    return s, R, t
+
+
 class Trajectory2D:
-    def __init__(self, gt_T: Optional[np.ndarray] = None, dataset: str = ""):
+    def __init__(self, gt_T: Optional[np.ndarray] = None, dataset: str = "",
+                 live: bool = False, umeyama: bool = False):
         self.gt_T = gt_T            # (N,4,4) or None
         self.dataset = dataset
+        self.live = live
+        self.umeyama = umeyama
         self.est: list = []
         self.gt: list = []
         self.s, self.R, self.t = 2.0, np.eye(3), np.zeros(3)
+        self.align_ok = True
         self._fig = None
 
     def push(self, frame_idx: int, T_cw: np.ndarray) -> None:
@@ -32,9 +57,12 @@ class Trajectory2D:
 
     def _aligned_est(self) -> np.ndarray:
         est = np.asarray(self.est)
+        if (self.umeyama and len(self.est) >= 10
+                and len(self.gt) == len(self.est)):
+            self.s, self.R, self.t = umeyama_sim3(est, np.asarray(self.gt))
         return (self.s * (est @ self.R.T)) + self.t
 
-    def draw(self) -> None:
+    def draw(self, block: bool = False) -> None:
         import matplotlib.pyplot as plt
 
         if self._fig is None:
@@ -66,6 +94,9 @@ class Trajectory2D:
         ax.text(0.02, 0.02, f"frames: {len(self.est)}",
                 transform=ax.transAxes, fontsize=8,
                 bbox=dict(fc="w", alpha=0.6, ec="none"))
+        if self.live:
+            self._fig.canvas.draw_idle()
+            plt.pause(0.001)
 
     def save(self, path: str) -> None:
         self.draw()

@@ -8,9 +8,9 @@ the port's back half to the reference's frame by frame, is in
   bounds, and its ``--fused`` run meets ``test_fused.py``'s
   host-against-fused bounds on that test's fixture (the chaotic part over
   RANSAC seeds, see the test);
-* ``main`` returns 0, a run without ``--device`` needs CUDA, the path not
-  ported (live windows) raises naming its roadmap item, and the saved-state
-  flags are refused or run as in the reference.
+* ``main`` returns 0, a run without ``--device`` needs CUDA, the live run
+  (without ``--headless``) gives the headless run's frames, and the
+  saved-state flags are refused or run as in the reference.
 """
 import os
 
@@ -158,19 +158,6 @@ def test_main_returns_zero_and_needs_a_device(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_slam.main(argv)
-
-
-@pytest.mark.parametrize("change, item", [
-    (dict(headless=False), "A.11"),
-    (dict(headless=False, loop_closure=True, gba_enable=True), "A.11")])
-def test_paths_not_ported_raise(change, item):
-    """Live windows raise naming their roadmap item, with loop closure and
-    global BA on too (those two are ported)."""
-    cfg = SLAMConfig(headless=True)
-    for k, v in change.items():
-        setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        run_slam.run(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("change, error", [

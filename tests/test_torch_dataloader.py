@@ -8,8 +8,8 @@ the JAX package's, on the CPU.
 * Dataset: on a 180x410 corridor written by the reference (``fov`` and
   ``crop`` cameras) and on a hand-built TUM fixture, the port's
   ``Sequence`` equals the reference's (frames, K, calibration, GT,
-  timestamps); one frame, an unknown dataset, ``.jpg`` and ``custom`` raise
-  as the reference does (or name the missing decoder).
+  timestamps); one frame, an unknown dataset, ``.jpg`` and a ``custom``
+  directory without its video raise as the reference does.
 * Synth: the port's ``generate_kitti_sequence`` against the reference's
   numpy renderer at 128x256 and 4 frames: the pose and calibration text
   equal, the images identical (the renderer tolerance of
@@ -223,8 +223,9 @@ def test_error_cases_raise_as_reference(tmp_path):
             mod.load_sequence(_args("euroc", str(one)))
         with pytest.raises(ValueError, match="No calibration"):
             mod.load_calibration(_args("parking", str(one)))
-    with pytest.raises(RuntimeError, match="requires cv2"):
-        dataloader.load_sequence(_args("custom", str(one)))
+        # no custom/custom_compress.mp4: cv2 decodes no frame
+        with pytest.raises(RuntimeError, match="at least two frames"):
+            mod.load_sequence(_args("custom", str(one)))
     with pytest.raises(FileNotFoundError):
         dataloader.imread_bgr(str(tmp_path / "missing.png"))
     grey = dataloader.imread_bgr(

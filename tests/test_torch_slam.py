@@ -398,6 +398,8 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     ["--detector", "akaze"],
     # the landmark fusion radius (no driver reads it in either package)
     ["--merge_radius", "0.2"],
+    # the local-BA reprojection overlays
+    ["--viz_ba"],
     # the mesh size and the profiler trace (run_slam reads neither)
     ["--mesh_devices", "4", "--trace_dir", "x"],
 ])
@@ -413,11 +415,12 @@ def test_config_matches_reference(argv):
 
 
 @pytest.mark.parametrize("argv", [["--pad_features", "512"],
-                                  ["--fps", "5"], ["--viz_ba"]])
+                                  ["--fps", "5"],
+                                  ["--compute_dtype", "bfloat16"]])
 def test_config_rejects_flags_of_unported_paths(argv):
-    """The TPU package's keypoint padding and the BA overlay windows have
-    no reader in the port, and ``--fps`` none in either package: the
-    parser refuses them instead of ignoring them."""
+    """The TPU package's keypoint padding and compute dtype have no reader
+    in the port, and ``--fps`` none in either package: the parser refuses
+    them instead of ignoring them."""
     from simpleslam_tpu.config import parse_config as jparse
     from simpleslam_tpu_torch.config import parse_config
     jparse(argv)
