@@ -11,10 +11,13 @@ state (``--save_state``, ``--resume``), localisation-only mode
 (``--localize_only``) and the keyframe thumbnails' ``--kf_thumb_hw`` are
 ported. ``--merge_radius`` parses as in the reference, where no driver
 reads it either (``ops/triangulation.py::MultiViewTriangulator`` takes its
-own radius). So do ``--mesh_devices`` and ``--trace_dir``: the
-reference's ``run_slam`` reads neither (it imports ``jax_trace`` and never
-calls it); ``parallel/mesh.py::make_mesh`` and
-``utils/profiling.py::torch_trace`` take them from a caller. The TPU
+own radius). So does ``--mesh_devices``: the reference's ``run_slam``
+never reads it, and ``parallel/mesh.py::make_mesh`` takes it from a
+caller. ``--trace_dir``, which the reference's ``run_slam`` never reads
+either (it imports ``jax_trace`` and never calls it), is read by the
+port's: it records the frame loop with ``torch.profiler`` and writes a
+Chrome trace and a span summary there (``utils/profiling.py::
+torch_trace``). The TPU
 package's padding and precision knobs and ``--fps``, which nothing in the
 reference reads, are absent: the parser rejects them rather than ignore
 them. ``--matcher`` is
@@ -219,7 +222,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=d.resume,
                    help="Resume pipeline state from a --save_state file")
     p.add_argument("--trace_dir", default=d.trace_dir,
-                   help="Directory for a torch.profiler trace "
+                   help="Directory for a torch.profiler trace of the "
+                        "frame loop and its span summary "
                         "(utils/profiling.py::torch_trace)")
     for f in dataclasses.fields(SLAMConfig):
         if f.type in ("int", "float", "Optional[int]"):

@@ -54,6 +54,7 @@ from simpleslam_tpu_torch.ops.triangulation import (projection_matrix,
                                                     triangulate_two_view,
                                                     two_view_gates)
 from simpleslam_tpu_torch.utils.device import resolve_device
+from simpleslam_tpu_torch.utils.profiling import span
 from simpleslam_tpu_torch.utils.rng import (SITE_ESS, SITE_GRELOC,
                                             SITE_KF_MATCH, SITE_KF_MATCH2,
                                             SITE_PNP, SITE_PREV_MATCH,
@@ -569,15 +570,20 @@ class FusedStep:
                                         device=self.device)
 
     # ------------------------------------------------------------- helpers
-    def _read(self, flag: torch.Tensor) -> bool:
-        """One device flag on the host (the branch reads the step counts)."""
+    def _read(self, flag: torch.Tensor, span_name: str = "fused.read"
+              ) -> bool:
+        """One device flag on the host (the branch reads the step counts),
+        inside the span ``span_name``."""
         self.host_reads += 1
-        return bool(flag.item())
+        with span(span_name):
+            return bool(flag.item())
 
     def _branch(self, name: str, flag: torch.Tensor) -> bool:
-        """The branch read ``name``, unless ``force_branch`` answers it."""
+        """The branch read ``name`` (the span ``fused.read.<name>``),
+        unless ``force_branch`` answers it."""
         forced = self.forced.get(name)
-        return self._read(flag) if forced is None else forced
+        return self._read(flag, "fused.read." + name) if forced is None \
+            else forced
 
     def _scalar(self, v) -> torch.Tensor:
         """A host integer on the device, by a fill (a copy would wait)."""
@@ -976,26 +982,29 @@ class FusedStep:
         """Process one frame: ``image`` (H, W) grey or (H, W, 3) BGR, uint8
         or float, on the step's device; with undistortion maps the grey
         frame is remapped (in float32, not rounded)."""
-        img = image.to(self.device)
-        if img.dim() == 3:
-            img = img.float() @ self.bgr_weights
-        else:
-            img = img.float()
-        if self.undistort_maps is not None:
-            img = remap_bilinear(img, *self.undistort_maps)
-        frame_no = state.frame_no
-        feats = self.detect(img)
-        T_new, pnp_ok, relocd, grelocd, n_inl, n_cand, assoc, inl = \
-            self._track(state, feats, frame_no)
-        tracked = pnp_ok or relocd or grelocd
-        state.Tcw_prev = T_new if grelocd else state.Tcw
-        state.Tcw = T_new
-        state.lost_streak = torch.zeros_like(state.lost_streak) if tracked \
-            else state.lost_streak + 1
-        if pnp_ok:
-            self._refresh_rings(state, assoc, inl, feats, frame_no)
-        is_kf, n_new, ba_ran, considered = self._maybe_keyframe(
-            state, feats, frame_no, assoc, inl)
+        with span("fused.detect"):
+            img = image.to(self.device)
+            if img.dim() == 3:
+                img = img.float() @ self.bgr_weights
+            else:
+                img = img.float()
+            if self.undistort_maps is not None:
+                img = remap_bilinear(img, *self.undistort_maps)
+            frame_no = state.frame_no
+            feats = self.detect(img)
+        with span("fused.track"):
+            T_new, pnp_ok, relocd, grelocd, n_inl, n_cand, assoc, inl = \
+                self._track(state, feats, frame_no)
+            tracked = pnp_ok or relocd or grelocd
+            state.Tcw_prev = T_new if grelocd else state.Tcw
+            state.Tcw = T_new
+            state.lost_streak = torch.zeros_like(state.lost_streak) \
+                if tracked else state.lost_streak + 1
+            if pnp_ok:
+                self._refresh_rings(state, assoc, inl, feats, frame_no)
+        with span("fused.keyframe"):
+            is_kf, n_new, ba_ran, considered = self._maybe_keyframe(
+                state, feats, frame_no, assoc, inl)
 
         i = state.log_n % self.fc.log_capacity
         state.log_pose[i] = state.Tcw

@@ -21,6 +21,7 @@ from torch import nn
 
 from simpleslam_tpu_torch.core.types import Features
 from simpleslam_tpu_torch.models.seeding import seeded_init_
+from simpleslam_tpu_torch.utils.profiling import span
 
 _GN_EPS = 1e-6
 
@@ -85,24 +86,25 @@ class ALIKED(nn.Module):
         self.score_conv2 = Conv(32, 1, 3, dtype)
 
     def forward(self, img: torch.Tensor):
-        B, H, W, _ = img.shape
-        x = space_to_depth(img.permute(0, 3, 1, 2).to(self.dtype), 2)
-        feats = []
-        for i in range(self.n_blocks):
-            x = getattr(self, f"block{i + 1}")(x)
-            feats.append(x)
-            if i + 1 < self.n_blocks:
-                x = F.avg_pool2d(x, 2)
-        h2, w2 = H // 2, W // 2
-        fused = torch.cat([feats[0].float()] + [
-            F.interpolate(f.float(), size=(h2, w2), mode="bilinear",
-                          align_corners=False) for f in feats[1:]], 1)
-        fused = fused.to(self.dtype)
-        desc_map = self.desc_head(fused).float()
-        s = self.score_conv2(_gelu(self.score_conv1(fused)))
-        score = F.interpolate(s.float(), size=(H, W), mode="bilinear",
-                              align_corners=False)[:, 0]
-        return score, desc_map.permute(0, 2, 3, 1)
+        with span("aliked.forward"):
+            B, H, W, _ = img.shape
+            x = space_to_depth(img.permute(0, 3, 1, 2).to(self.dtype), 2)
+            feats = []
+            for i in range(self.n_blocks):
+                x = getattr(self, f"block{i + 1}")(x)
+                feats.append(x)
+                if i + 1 < self.n_blocks:
+                    x = F.avg_pool2d(x, 2)
+            h2, w2 = H // 2, W // 2
+            fused = torch.cat([feats[0].float()] + [
+                F.interpolate(f.float(), size=(h2, w2), mode="bilinear",
+                              align_corners=False) for f in feats[1:]], 1)
+            fused = fused.to(self.dtype)
+            desc_map = self.desc_head(fused).float()
+            s = self.score_conv2(_gelu(self.score_conv1(fused)))
+            score = F.interpolate(s.float(), size=(H, W), mode="bilinear",
+                                  align_corners=False)[:, 0]
+            return score, desc_map.permute(0, 2, 3, 1)
 
 
 # --------------------------------------------------------------------------- #
@@ -189,8 +191,9 @@ def extract_batch(model: "ALIKED", images: torch.Tensor, max_kp: int
     :func:`dkd_extract` per image (``topk`` and the gathers are
     single-image)."""
     score, desc_map = model(images)
-    return Features.stack([dkd_extract(score[b], desc_map[b], max_kp)
-                           for b in range(images.shape[0])])
+    with span("aliked.dkd"):
+        return Features.stack([dkd_extract(score[b], desc_map[b], max_kp)
+                               for b in range(images.shape[0])])
 
 
 def preprocess_image(img: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ from torch import nn
 from simpleslam_tpu_torch.core.types import Matches
 from simpleslam_tpu_torch.models.seeding import seeded_init_
 from simpleslam_tpu_torch.ops.attention import masked_attention
+from simpleslam_tpu_torch.utils.profiling import span
 
 _NEG = -1e9
 _LN_EPS = 1e-6   # flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -131,33 +132,35 @@ class LightGlue(nn.Module):
                 image_hw: Tuple[int, int]):
         """kpts (B, N, 2) pixels, desc (B, N, D), valid (B, N) bool ->
         (P (B, N, M) assignment probabilities, sig0, sig1)."""
-        H, W = image_hw
-        scale = float(max(H, W))
+        with span("lightglue.forward"):
+            H, W = image_hw
+            scale = float(max(H, W))
 
-        def centred(k):           # Python numbers: no copy to the device
-            return torch.stack([k[..., 0] - W / 2.0, k[..., 1] - H / 2.0], -1)
+            def centred(k):       # Python numbers: no copy to the device
+                return torch.stack([k[..., 0] - W / 2.0,
+                                    k[..., 1] - H / 2.0], -1)
 
-        th0 = self.rotary_freq(centred(kpts0) / scale) * 10.0
-        th1 = self.rotary_freq(centred(kpts1) / scale) * 10.0
-        x0 = self.input_proj(desc0.float())
-        x1 = self.input_proj(desc1.float())
-        for i in range(self.n_layers):
-            su = getattr(self, f"self{i}")
-            cu = getattr(self, f"cross{i}")
-            x0 = su(x0, x0, valid0, th0, th0)
-            x1 = su(x1, x1, valid1, th1, th1)
-            x0n = cu(x0, x1, valid1)
-            x1 = cu(x1, x0, valid0)
-            x0 = x0n
-        m0, m1 = self.final_proj(x0), self.final_proj(x1)
-        S = torch.einsum("bnd,bmd->bnm", m0, m1) / (self.dim ** 0.5)
-        sig0 = torch.sigmoid(self.matchability(x0)[..., 0])
-        sig1 = torch.sigmoid(self.matchability(x1)[..., 0])
-        pair = valid0[:, :, None] & valid1[:, None, :]
-        S = torch.where(pair, S, torch.full_like(S, _NEG))
-        P = (torch.softmax(S, -1) * torch.softmax(S, -2)
-             * sig0[:, :, None] * sig1[:, None, :])
-        return torch.where(pair, P, torch.zeros_like(P)), sig0, sig1
+            th0 = self.rotary_freq(centred(kpts0) / scale) * 10.0
+            th1 = self.rotary_freq(centred(kpts1) / scale) * 10.0
+            x0 = self.input_proj(desc0.float())
+            x1 = self.input_proj(desc1.float())
+            for i in range(self.n_layers):
+                su = getattr(self, f"self{i}")
+                cu = getattr(self, f"cross{i}")
+                x0 = su(x0, x0, valid0, th0, th0)
+                x1 = su(x1, x1, valid1, th1, th1)
+                x0n = cu(x0, x1, valid1)
+                x1 = cu(x1, x0, valid0)
+                x0 = x0n
+            m0, m1 = self.final_proj(x0), self.final_proj(x1)
+            S = torch.einsum("bnd,bmd->bnm", m0, m1) / (self.dim ** 0.5)
+            sig0 = torch.sigmoid(self.matchability(x0)[..., 0])
+            sig1 = torch.sigmoid(self.matchability(x1)[..., 0])
+            pair = valid0[:, :, None] & valid1[:, None, :]
+            S = torch.where(pair, S, torch.full_like(S, _NEG))
+            P = (torch.softmax(S, -1) * torch.softmax(S, -2)
+                 * sig0[:, :, None] * sig1[:, None, :])
+            return torch.where(pair, P, torch.zeros_like(P)), sig0, sig1
 
 
 def matches_from_assignment(P: torch.Tensor, min_conf: float) -> Matches:
@@ -197,7 +200,9 @@ def match_batch(model: LightGlue, feats0, feats1, image_hw: Tuple[int, int],
     pair."""
     P, _, _ = model(feats0.kpts, feats0.desc, feats0.valid,
                     feats1.kpts, feats1.desc, feats1.valid, image_hw)
-    return Matches.stack([matches_from_assignment(p, min_conf) for p in P])
+    with span("lightglue.assign"):
+        return Matches.stack([matches_from_assignment(p, min_conf)
+                              for p in P])
 
 
 def init_lightglue(generator: torch.Generator, desc_dim: int = 128,

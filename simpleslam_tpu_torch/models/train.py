@@ -43,6 +43,7 @@ from simpleslam_tpu_torch.models import aliked as aliked_mod
 from simpleslam_tpu_torch.models import lightglue as lg_mod
 from simpleslam_tpu_torch.ops.epipolar import fit_homography
 from simpleslam_tpu_torch.utils.device import resolve_device
+from simpleslam_tpu_torch.utils.profiling import span
 from simpleslam_tpu_torch.utils.resize import (resize_area,
                                                resize_bicubic_like_jax,
                                                resize_linear)
@@ -745,11 +746,13 @@ def loss_and_grad(models: Dict[str, nn.Module],
                   batch: Dict[str, torch.Tensor], image_hw: Tuple[int, int]):
     """(loss metrics, the flat gradient over :func:`param_list`)."""
     params = param_list(models)
-    total, metrics = loss_fn(models["aliked"], models["lightglue"], batch,
-                             image_hw)
-    grads = torch.autograd.grad(total, params)
-    return {k: v.detach() for k, v in metrics.items()}, \
-        torch.cat([g.reshape(-1) for g in grads])
+    with span("train.forward"):
+        total, metrics = loss_fn(models["aliked"], models["lightglue"],
+                                 batch, image_hw)
+    with span("train.backward"):
+        grads = torch.autograd.grad(total, params)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+    return {k: v.detach() for k, v in metrics.items()}, flat
 
 
 def make_train_step(tx: AdamWChain, image_hw: Tuple[int, int]):
@@ -758,7 +761,9 @@ def make_train_step(tx: AdamWChain, image_hw: Tuple[int, int]):
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         metrics, grad = loss_and_grad(state.models, batch, image_hw)
-        opt_state, _gnorm = tx.update_(state.flat, grad, state.opt_state)
+        with span("train.optimizer"):
+            opt_state, _gnorm = tx.update_(state.flat, grad,
+                                           state.opt_state)
         return state._replace(opt_state=opt_state, step=state.step + 1), \
             metrics
 
@@ -918,17 +923,19 @@ def sharded_loss_and_grad(models: Dict[str, nn.Module],
     B = batch["img0"].shape[0]
     s = dp_slice(mesh, B)
     params = param_list(models)
-    total, metrics = loss_fn(
-        models["aliked"], models["lightglue"],
-        {k: v[s] for k, v in batch.items()}, image_hw,
-        n_valid=torch.clamp(batch["pt_valid"].sum(), min=1),
-        batch_share=(s.stop - s.start) / B)
-    grads = torch.autograd.grad(total, params)
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    group = mesh.get_group("dp")
+    with span("train.forward"):
+        total, metrics = loss_fn(
+            models["aliked"], models["lightglue"],
+            {k: v[s] for k, v in batch.items()}, image_hw,
+            n_valid=torch.clamp(batch["pt_valid"].sum(), min=1),
+            batch_share=(s.stop - s.start) / B)
+    with span("train.backward"):
+        grads = torch.autograd.grad(total, params)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=group)
     names = sorted(metrics)
     m = torch.stack([metrics[k].detach().float() for k in names])
-    group = mesh.get_group("dp")
-    torch.distributed.all_reduce(flat, group=group)
     torch.distributed.all_reduce(m, group=group)
     return dict(zip(names, m)), flat
 
@@ -962,8 +969,9 @@ def make_sharded_train_step(tx: AdamWChain, image_hw: Tuple[int, int],
                 torch.distributed.all_reduce(own, group=tp_group)
                 return torch.sqrt(torch.where(shard, zero, sq).sum() + own)
 
-        opt_state, _gnorm = tx.update_(state.flat, grad, state.opt_state,
-                                       norm_fn=norm_fn)
+        with span("train.optimizer"):
+            opt_state, _gnorm = tx.update_(state.flat, grad, state.opt_state,
+                                           norm_fn=norm_fn)
         return state._replace(opt_state=opt_state, step=state.step + 1), \
             metrics
 

@@ -53,7 +53,7 @@ from simpleslam_tpu_torch.data import Prefetcher, Sequence as Dataset
 from simpleslam_tpu_torch.ops import epipolar, pnp, projection, se3
 from simpleslam_tpu_torch.tools.trajectory_eval import ate_rmse
 from simpleslam_tpu_torch.utils.device import resolve_device
-from simpleslam_tpu_torch.utils.profiling import StageTimer
+from simpleslam_tpu_torch.utils.profiling import StageTimer, torch_trace
 from simpleslam_tpu_torch.viz import Trajectory2D, Visualizer3D, VizUI
 from simpleslam_tpu_torch.utils.rng import (SITE_ESS, SITE_GRELOC,
                                             SITE_KF_MATCH, SITE_KF_MATCH2,
@@ -1021,7 +1021,10 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     frame in flight on SIGINT (the host loop). Without ``cfg.headless``
     the host loop updates the live windows after each frame (a failure
     there is logged as ``viz failed``, as without matplotlib) and stops
-    when the keyboard UI quits; the fused loop shows none."""
+    when the keyboard UI quits; the fused loop shows none.
+    ``cfg.trace_dir``: record the frame loop under ``torch.profiler`` and
+    write its Chrome trace and span summary there
+    (``utils/profiling.py::torch_trace``)."""
     _check_state_flags(cfg)
     device = resolve_device(device)
     logging.basicConfig(level=logging.INFO,
@@ -1068,49 +1071,51 @@ def run(cfg: SLAMConfig, device=None, key=None) -> SLAMResult:
     old_handler = (signal.signal(signal.SIGINT, on_sigint)
                    if cfg.save_state else None)
 
-    try:
-        frame_idx = start_idx - 1
-        if cfg.fused:
-            # the host bootstraps, then the fused device loop takes the rest
-            if not system.initialised:
-                for frame_idx in range(start_idx, n):
-                    with system.timer.stage("frame_load"):
-                        img = seq.frame(frame_idx)
-                    prev_feats = system.process_frame(frame_idx, img,
-                                                      prev_feats)
-                    if system.initialised:
-                        break
-                start_idx = frame_idx + 1
-            if system.initialised and start_idx < n:
-                _run_fused_over(cfg, seq, system, prev_feats, start_idx)
-            if system.initialised and system.world_map.poses:
-                push_poses(frame_idx)
-            start_idx = n
-        for frame_idx in range(start_idx, n):
-            if stop:
-                break
-            with system.timer.stage("frame_load"):
-                img = seq.frame(frame_idx)
-            prev_feats = system.process_frame(frame_idx, img, prev_feats)
-            if system.initialised and system.world_map.poses:
-                push_poses(frame_idx)
-            if not headless:
-                try:
-                    viz3d.update(system.world_map.get_point_array(),
-                                 system.world_map.get_color_array(),
-                                 np.asarray([-p[:3, :3].T @ p[:3, 3]
-                                             for p in system.world_map.poses]))
-                    traj2d.draw()
-                    _show_driver_windows(system)
-                except Exception as e:
-                    logger.warning("viz failed: %s", e)
-                if not ui.poll():
+    with torch_trace(cfg.trace_dir):
+        try:
+            frame_idx = start_idx - 1
+            if cfg.fused:
+                # the host bootstraps, then the fused device loop takes
+                # the rest
+                if not system.initialised:
+                    for frame_idx in range(start_idx, n):
+                        with system.timer.stage("frame_load"):
+                            img = seq.frame(frame_idx)
+                        prev_feats = system.process_frame(frame_idx, img,
+                                                          prev_feats)
+                        if system.initialised:
+                            break
+                    start_idx = frame_idx + 1
+                if system.initialised and start_idx < n:
+                    _run_fused_over(cfg, seq, system, prev_feats, start_idx)
+                if system.initialised and system.world_map.poses:
+                    push_poses(frame_idx)
+                start_idx = n
+            for frame_idx in range(start_idx, n):
+                if stop:
                     break
-    finally:
-        if old_handler is not None:
-            signal.signal(signal.SIGINT, old_handler)
-
-    dt = time.perf_counter() - t_start
+                with system.timer.stage("frame_load"):
+                    img = seq.frame(frame_idx)
+                prev_feats = system.process_frame(frame_idx, img, prev_feats)
+                if system.initialised and system.world_map.poses:
+                    push_poses(frame_idx)
+                if not headless:
+                    try:
+                        viz3d.update(
+                            system.world_map.get_point_array(),
+                            system.world_map.get_color_array(),
+                            np.asarray([-p[:3, :3].T @ p[:3, 3]
+                                        for p in system.world_map.poses]))
+                        traj2d.draw()
+                        _show_driver_windows(system)
+                    except Exception as e:
+                        logger.warning("viz failed: %s", e)
+                    if not ui.poll():
+                        break
+        finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGINT, old_handler)
+        dt = time.perf_counter() - t_start        # before the trace's export
     res = SLAMResult(
         poses_cw=list(system.world_map.poses),
         frame_ids=list(system.frame_ids),

@@ -356,10 +356,22 @@ def test_sharded_train_step_equals_unsharded_step(ranks):
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
-    from simpleslam_tpu_torch.utils.profiling import torch_trace
+    import json
+    from simpleslam_tpu_torch.utils.profiling import span, spans, torch_trace
     with torch_trace(None):
-        torch.ones(3).sum()
+        with span("probe"):
+            torch.ones(3).sum()
+    assert not any(r["name"] == "probe" for r in spans())
     with torch_trace(str(tmp_path / "tr")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    (f,) = os.listdir(tmp_path / "tr")
+        with span("probe"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    names = sorted(os.listdir(tmp_path / "tr"))
+    assert [n.split("_")[0] for n in names] == ["spans", "trace"]
+    f = names[1]
     assert f.endswith(".json") and os.path.getsize(tmp_path / "tr" / f) > 0
+    # the span summary beside it holds the block's spans
+    assert names[0] == "spans_" + f[len("trace_"):]
+    with open(tmp_path / "tr" / names[0]) as fh:
+        got = json.load(fh)
+    assert got["totals"]["probe"]["count"] == 1
+    assert [r["name"] for r in got["spans"]] == ["probe"]

@@ -400,7 +400,7 @@ def test_slam_system_needs_a_device_without_cuda(monkeypatch, corridor):
     ["--merge_radius", "0.2"],
     # the local-BA reprojection overlays
     ["--viz_ba"],
-    # the mesh size and the profiler trace (run_slam reads neither)
+    # the mesh size (no driver reads it) and the profiler trace
     ["--mesh_devices", "4", "--trace_dir", "x"],
 ])
 def test_config_matches_reference(argv):
